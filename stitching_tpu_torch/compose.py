@@ -1,0 +1,318 @@
+"""Batched compositing on the card: warp, seam-mask resize, paste blend.
+
+Port of the parts of `stitching_tpu/compose.py` that the slice runs. Every
+stage is one batched pass over a stacked tile batch that stays in device
+memory:
+
+- `warp_stack`: all images warp onto the surface at once. The backward map
+  (`_bwd_coords`) and the validity masks are batched tensor code; the
+  bilinear gather is the CUDA kernel `ops/kernels/bilinear_sample`;
+- `resize_seam_masks_stack`: dilate + resize + mask-AND for all seam masks;
+- `blend_stack` for blender kind "no": a paste composite, tile after tile,
+  then one uint8 conversion. The panorama leaves the card once.
+
+Tiles share one 64-bucketed (B, TH, TW, C) shape; true per-image corners
+and sizes ride along as host metadata.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .ops.kernels.bilinear_sample import bilinear_sample
+from .ops.warp import PROJECTORS, warp_roi
+
+
+def _round_up(x, m=64):
+    return int(-(-x // m) * m)
+
+
+@dataclasses.dataclass(frozen=True)
+class TileStack:
+    """A batch of warped tiles resident on the card.
+
+    data: (B, TH, TW, C) float32; tile i's true content is [0:h_i, 0:w_i].
+    masks: (B, TH, TW) float32 in {0, 255}: warp validity.
+    corners: host (B, 2) int (x, y) in surface/panorama coordinates.
+    sizes: host (B, 2) int (w, h) true tile sizes.
+    """
+
+    data: torch.Tensor
+    masks: torch.Tensor
+    corners: np.ndarray
+    sizes: np.ndarray
+
+
+# ---------------------------------------------------------------------------
+# Batched warp
+# ---------------------------------------------------------------------------
+
+def plan_warp_rois(sizes, Ks, Rs, scale, warper_type):
+    """Host-side dst ROIs for every image: (corners (B,2), sizes (B,2))."""
+    corners, out_sizes = [], []
+    for size, K, R in zip(sizes, Ks, Rs):
+        tl, wh = warp_roi(size, K, R, scale, warper_type)
+        corners.append(tl)
+        out_sizes.append(wh)
+    return np.asarray(corners, np.int64), np.asarray(out_sizes, np.int64)
+
+
+def _bwd_coords(k_rinv, tls, inv_scale, th, tw, warper_type):
+    """Backward map over every image's dst grid.
+
+    k_rinv: (B, 3, 3); tls: (B, 2). Returns sx, sy, valid (B, th, tw) and
+    the dst cols (1, 1, tw) / rows (1, th, 1) as float32."""
+    dev = k_rinv.device
+    cols = torch.arange(tw, dtype=torch.float32, device=dev)[None, None, :]
+    rows = torch.arange(th, dtype=torch.float32, device=dev)[None, :, None]
+    u = ((tls[:, 0, None, None] + cols) * inv_scale).expand(-1, th, tw)
+    v = ((tls[:, 1, None, None] + rows) * inv_scale).expand(-1, th, tw)
+    _, bwd = PROJECTORS[warper_type]
+    x, y, z = bwd(u, v)
+    k = k_rinv[:, :, :, None, None]
+    q0 = k[:, 0, 0] * x + k[:, 0, 1] * y + k[:, 0, 2] * z
+    q1 = k[:, 1, 0] * x + k[:, 1, 1] * y + k[:, 1, 2] * z
+    q2 = k[:, 2, 0] * x + k[:, 2, 1] * y + k[:, 2, 2] * z
+    valid = q2 > 0
+    q2s = torch.where(q2.abs() < 1e-12, 1e-12, q2)
+    return q0 / q2s, q1 / q2s, valid, cols, rows
+
+
+def _warp_stack_kernel(data, src_sizes, k_rinv, tls, dst_sizes, inv_scale,
+                       *, th, tw, warper_type):
+    """Warp every image of the padded stack onto the surface.
+
+    data: (B, H, W, C) float32; src_sizes/dst_sizes: (B, 2) (w, h);
+    k_rinv: (B, 3, 3) float32; tls: (B, 2) float32 dst top-left. Returns
+    tiles (B, th, tw, C) float32 and masks (B, th, tw) float32 {0, 255}.
+
+    The sampler is exact at `care` pixels, the ones whose bilinear taps
+    reach the source; pixels outside the mask are zeroed. The mask is the
+    nearest-neighbour in-bounds indicator through the same backward map.
+    """
+    sx, sy, valid, cols, rows = _bwd_coords(k_rinv, tls, inv_scale, th, tw,
+                                            warper_type)
+    w = src_sizes[:, 0, None, None].to(torch.float32)
+    h = src_sizes[:, 1, None, None].to(torch.float32)
+    sxc = torch.minimum(sx.clamp_min(0.0), w - 1.0)
+    syc = torch.minimum(sy.clamp_min(0.0), h - 1.0)
+    care = valid & (sx >= -1) & (sx <= w) & (sy >= -1) & (sy <= h)
+    xi = torch.round(sx)
+    yi = torch.round(sy)
+    inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1) & valid
+    inroi = ((cols < dst_sizes[:, 0, None, None].to(torch.float32))
+             & (rows < dst_sizes[:, 1, None, None].to(torch.float32)))
+    mask = torch.where(inb & inroi, 255.0, 0.0)
+    out = bilinear_sample(data, sxc, syc, care)
+    out = torch.where((valid & inroi)[..., None], out, 0.0)
+    return out, mask
+
+
+def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
+    """Warp the whole padded image stack in one batched pass.
+
+    data: (B, H, W, C) tensor; src_sizes: (B, 2) host int (w, h);
+    Ks/Rs: per-image 3x3. Returns a TileStack with true per-image ROIs.
+    """
+    b = data.shape[0]
+    n = len(Ks)
+    dev = data.device
+    corners, dsizes = plan_warp_rois(
+        [tuple(s) for s in src_sizes[:n]], Ks, Rs, scale, warper_type)
+    th = _round_up(int(dsizes[:, 1].max()))
+    tw = _round_up(int(dsizes[:, 0].max()))
+    k_rinv = np.zeros((b, 3, 3), np.float32)
+    for i in range(n):
+        k_rinv[i] = (np.asarray(Ks[i], np.float64)
+                     @ np.linalg.inv(np.asarray(Rs[i], np.float64)))
+    tls = np.zeros((b, 2), np.float32)
+    tls[:n] = corners
+    # padded batch slots get a zero ROI, hence an all-zero mask
+    dsz = np.zeros((b, 2), np.int32)
+    dsz[:n] = dsizes
+    tiles, masks = _warp_stack_kernel(
+        data, torch.as_tensor(np.asarray(src_sizes, np.int32), device=dev),
+        torch.as_tensor(k_rinv, device=dev), torch.as_tensor(tls, device=dev),
+        torch.as_tensor(dsz, device=dev), float(np.float32(1.0 / scale)),
+        th=th, tw=tw, warper_type=warper_type)
+    return TileStack(tiles, masks, np.asarray(corners[:n]),
+                     np.asarray(dsizes[:n]))
+
+
+# ---------------------------------------------------------------------------
+# Batched seam-mask resize (dilate + bilinear resize + AND with warp mask)
+# ---------------------------------------------------------------------------
+
+def _seam_resize_kernel(seams, lo_sizes, fin_masks, fin_sizes):
+    """seams: (B, LH, LW) float32; fin_masks: (B, TH, TW) float32 {0,255}.
+    Per image: 3x3 dilate the LOW seam mask, bilinear-resize it to the
+    image's FINAL size, zero outside the FINAL warp mask."""
+    LH, LW = seams.shape[1], seams.shape[2]
+    TH, TW = fin_masks.shape[1], fin_masks.shape[2]
+    dev = seams.device
+    # max_pool2d pads with -inf where the reference pads with 0: every
+    # window holds a real mask value >= 0, so the two maxima agree
+    dil = F.max_pool2d(seams[:, None], 3, stride=1, padding=1)[:, 0]
+    lsz = lo_sizes.to(torch.float32)
+    fsz = fin_sizes.to(torch.float32).clamp_min(1.0)
+
+    def axis(n_out, lo, fin, limit):
+        pos = ((torch.arange(n_out, dtype=torch.float32, device=dev)[None]
+                + 0.5) * (lo / fin)[:, None] - 0.5)
+        pos = torch.minimum(pos.clamp_min(0.0), lo[:, None] - 1.0)
+        p0 = torch.floor(pos)
+        i0 = p0.long().clamp(0, limit - 1)
+        return i0, (i0 + 1).clamp_max(limit - 1), pos - p0
+
+    x0, x1, fx = axis(TW, lsz[:, 0], fsz[:, 0], LW)
+    y0, y1, fy = axis(TH, lsz[:, 1], fsz[:, 1], LH)
+    bi = torch.arange(seams.shape[0], device=dev)[:, None, None]
+
+    def tap(yy, xx):
+        return dil[bi, yy[:, :, None], xx[:, None, :]]
+
+    fx = fx[:, None, :]
+    fy = fy[:, :, None]
+    r0 = tap(y0, x0) * (1 - fx) + tap(y0, x1) * fx
+    r1 = tap(y1, x0) * (1 - fx) + tap(y1, x1) * fx
+    res = r0 * (1 - fy) + r1 * fy
+    return torch.where(fin_masks > 0, res, 0.0)
+
+
+def resize_seam_masks_stack(seam_masks_low, final_stack: TileStack):
+    """Resize the LOW seam masks against the FINAL stack's masks.
+
+    seam_masks_low: a tuple (masks (B, LH, LW) float32 on the card,
+    low_sizes (B, 2)). Returns (B, TH, TW) float32 aligned with
+    `final_stack.data`.
+    """
+    lo, low_sizes = seam_masks_low
+    dev = final_stack.data.device
+    b = final_stack.data.shape[0]
+    lsz = np.ones((b, 2), np.int32)
+    lsz[:len(low_sizes)] = np.asarray(low_sizes, np.int32)
+    fsz = np.ones((b, 2), np.int32)
+    fsz[:len(final_stack.sizes)] = final_stack.sizes
+    return _seam_resize_kernel(lo, torch.as_tensor(lsz, device=dev),
+                               final_stack.masks,
+                               torch.as_tensor(fsz, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Blending
+# ---------------------------------------------------------------------------
+
+def _canvas_roi(corners, sizes):
+    xs = corners[:, 0]
+    ys = corners[:, 1]
+    x2 = corners[:, 0] + sizes[:, 0]
+    y2 = corners[:, 1] + sizes[:, 1]
+    tl = (int(xs.min()), int(ys.min()))
+    return tl, (int(x2.max()) - tl[0], int(y2.max()) - tl[1])
+
+
+def _shifted_tile_window(tile, seam, shift, size):
+    """View the tile inside its (clamped) canvas window: window pixel
+    (r, s) maps to tile pixel (r - shift_y, s - shift_x); outside the true
+    tile extent the seam reads 0 (no contribution)."""
+    TH, TW = tile.shape[0], tile.shape[1]
+    dev = tile.device
+    ry = torch.arange(TH, device=dev) - int(shift[1])
+    rx = torch.arange(TW, device=dev) - int(shift[0])
+    yc = ry.clamp(0, TH - 1)
+    xc = rx.clamp(0, TW - 1)
+    win = tile[yc][:, xc]
+    iny = (ry >= 0) & (ry < int(size[1]))
+    inx = (rx >= 0) & (rx < int(size[0]))
+    sm = torch.where(iny[:, None] & inx[None, :], seam[yc][:, xc], 0.0)
+    return win, sm
+
+
+def _paste_feed_batched(tiles, seams, offs, shifts, sizes, ph, pw):
+    """Paste every tile's seam-owned pixels onto the canvas, in batch order
+    (later tiles overwrite earlier ones). The canvas updates in place."""
+    C = tiles.shape[-1]
+    TH, TW = tiles.shape[1], tiles.shape[2]
+    dev = tiles.device
+    canvas = torch.zeros((ph, pw, C), dtype=torch.float32, device=dev)
+    cmask = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
+    for i in range(tiles.shape[0]):
+        win, sm = _shifted_tile_window(tiles[i], seams[i], shifts[i],
+                                       sizes[i])
+        inside = sm > 0
+        oy, ox = int(offs[i, 1]), int(offs[i, 0])
+        region = canvas[oy:oy + TH, ox:ox + TW]
+        region.copy_(torch.where(inside[..., None], win, region))
+        mreg = cmask[oy:oy + TH, ox:ox + TW]
+        mreg.masked_fill_(inside, 255.0)
+    return canvas, cmask
+
+
+def _plan_blend(corners, sizes, b, blender_type, blend_strength, th, twd):
+    """Host geometry plan of the blend: blender-kind resolution
+    (blend_width < 1 -> "no", the reference rule), window/canvas shapes,
+    and per-image window offsets + in-window tile shifts. This slice
+    composites kind "no" only."""
+    corners = np.asarray(corners)
+    sizes = np.asarray(sizes)
+    tl, (dw, dh) = _canvas_roi(corners, sizes)
+    n = len(sizes)
+    szs = np.ones((b, 2), np.int32)
+    szs[:n] = sizes
+
+    blend_width = np.sqrt(dh * dw) * blend_strength / 100.0
+    kind = blender_type if blend_width >= 1 else "no"
+    if kind != "no":
+        raise NotImplementedError(
+            f"blender_type={kind!r} is not ported yet (ROADMAP queue 1: "
+            "multiband)")
+    m = 1
+    gap = 0
+    offs = np.zeros((b, 2), np.int32)
+    shifts = np.zeros((b, 2), np.int32)
+    wh, ww = th, twd
+    ph = max(_round_up(dh + gap + m), wh)
+    pw = max(_round_up(dw + gap + m), ww)
+    for i in range(n):
+        for a, (pd, wd) in enumerate(((pw, ww), (ph, wh))):
+            start = max(corners[i, a] - gap, tl[a])
+            aligned = tl[a] + ((start - tl[a]) // m) * m
+            aligned = min(aligned, tl[a] + pd - wd)
+            offs[i, a] = aligned - tl[a]
+            shifts[i, a] = corners[i, a] - aligned
+    return dict(kind=kind, wh=wh, ww=ww, ph=ph, pw=pw, tl=tl, dh=dh, dw=dw,
+                offs=offs, shifts=shifts, szs=szs, n=n)
+
+
+def _to_u8(img):
+    return torch.round(img).clamp(0, 255).to(torch.uint8)
+
+
+def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength):
+    """Composite the stack into the panorama (blender kind "no").
+
+    seam_masks: (B, TH, TW) tensor (from `resize_seam_masks_stack`) or None
+    (use the stack's warp masks). Returns (pano_u8 (dh, dw, C), mask_u8
+    (dh, dw)) on the stack's device; `fetch_image` copies to the host.
+    """
+    if seam_masks is None:
+        seam_masks = stack.masks
+    b = stack.data.shape[0]
+    th, twd = int(stack.data.shape[1]), int(stack.data.shape[2])
+    p = _plan_blend(stack.corners, stack.sizes, b, blender_type,
+                    blend_strength, th, twd)
+    canvas, cmask = _paste_feed_batched(
+        stack.data, seam_masks, p["offs"], p["shifts"], p["szs"],
+        p["ph"], p["pw"])
+    dh, dw = p["dh"], p["dw"]
+    return _to_u8(canvas[:dh, :dw]), (cmask[:dh, :dw] > 1e-5).to(
+        torch.uint8) * 255
+
+
+def fetch_image(img):
+    """Device -> host copy of an image tensor (host arrays pass through)."""
+    if isinstance(img, np.ndarray):
+        return img
+    return img.cpu().numpy()

@@ -1,0 +1,90 @@
+"""Feature detection component (ORB).
+
+Port of `stitching_tpu/feature_detector.py`: the registry of detector
+choices (orb default / sift / brisk / akaze) with the same validation;
+this slice implements ORB (`ops/orb.py`), the others raise
+`NotImplementedError`. `detect` runs ONE batched pass for the whole image
+list (`pipeline.detect_stack`); the small per-keypoint fields land on host,
+the descriptors stay on the card.
+"""
+
+from collections import OrderedDict
+
+import numpy as np
+
+from .errors import StitchingError
+from .pipeline import detect_stack, stack_images
+from .types import Features
+
+
+class FeatureDetector:
+    DETECTOR_CHOICES = OrderedDict(
+        orb=dict(is_binary=True, default_nfeatures=500),
+        sift=dict(is_binary=False, default_nfeatures=500),
+        brisk=dict(is_binary=True, default_nfeatures=1024),
+        akaze=dict(is_binary=True, default_nfeatures=1024),
+    )
+    DEFAULT_DETECTOR = list(DETECTOR_CHOICES.keys())[0]
+    PORTED = ("orb",)
+
+    def __init__(self, detector=DEFAULT_DETECTOR, device="cuda", **kwargs):
+        if detector not in self.DETECTOR_CHOICES:
+            raise StitchingError("invalid detector: " + str(detector))
+        if detector not in self.PORTED:
+            raise NotImplementedError(
+                f"detector={detector!r} is not ported yet (ROADMAP queue 1: "
+                "SIFT/BRISK/AKAZE)")
+        self.detector_name = detector
+        spec = self.DETECTOR_CHOICES[detector]
+        self.is_binary = spec["is_binary"]
+        self.nfeatures = int(kwargs.get("nfeatures",
+                                        spec["default_nfeatures"]))
+        self.device = device
+
+    def detect(self, imgs):
+        """Batched detection over an image list."""
+        return self.detect_on_stack(stack_images(imgs, self.device))
+
+    def detect_with_masks(self, imgs, masks):
+        if len(imgs) != len(masks):
+            raise StitchingError(
+                "image and mask lists must be of same length")
+        for idx, (img, mask) in enumerate(zip(imgs, masks)):
+            if mask.shape[0] != img.shape[0] or mask.shape[1] != img.shape[1]:
+                raise StitchingError(
+                    f"Resolution of mask {idx + 1} {mask.shape} does not"
+                    f" match the resolution of image {idx + 1}"
+                    f" {img.shape[:2]}."
+                )
+        return self.detect_on_stack(stack_images(imgs, self.device), masks)
+
+    def detect_on_stack_dispatch(self, stack, masks=None):
+        """Detect on a DeviceStack without copying to host: the stacked
+        dict of tensors."""
+        return detect_stack(
+            stack, nfeatures=self.nfeatures, variant=self.detector_name,
+            feature_masks=masks)
+
+    def features_from_host(self, desc, small, sizes):
+        """Per-image Features from host copies of the small detection
+        fields; descriptors stay on the card."""
+        return [
+            Features(
+                xy=np.asarray(small["xy"][i]),
+                response=np.asarray(small["response"][i]),
+                size=np.asarray(small["size"][i]),
+                angle=np.asarray(small["angle_deg"][i]),
+                desc=desc[i],
+                valid=np.asarray(small["valid"][i]),
+                img_size=(int(w), int(h)),
+                is_binary=self.is_binary,
+            )
+            for i, (w, h) in enumerate(sizes)
+        ]
+
+    def detect_on_stack(self, stack, masks=None):
+        """Detect on an already device-resident DeviceStack."""
+        out = self.detect_on_stack_dispatch(stack, masks)
+        small = {k: out[k].cpu().numpy() for k in
+                 ("xy", "response", "size", "angle_deg", "valid")}
+        return self.features_from_host(out["desc"], small, stack.sizes)

@@ -1,0 +1,116 @@
+"""Hand-written Hopper kernels: build at first use, bind with ctypes.
+
+Each kernel is CUDA C++ in `stitching_tpu_torch/csrc/` with a plain C
+interface. `load(name)` compiles `csrc/<name>.cu` with nvcc for sm_90a into
+`build/stitching_tpu_torch/` at the repository root (a cache keyed by a hash
+of the source and the flags), loads it with ctypes and returns its C entry
+with the argument types of `ENTRIES` set. Nothing compiles at
+import time: the CPU tests import every module, and there a wrapper runs its
+kernel's plain PyTorch version because the tensor it was given lies on the
+CPU. A CUDA tensor launches the kernel or raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "stitching_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> (C entry, argument types); every entry takes the stream last and
+# returns a cudaError_t
+ENTRIES = {
+    "two_nn": ("two_nn_pairs_binary", [_P] * 7 + [_I] * 5 + [_P]),
+    "bilinear_sample": ("bilinear_sample", [_P] * 4 + [_I] * 6 + [_P]),
+}
+KERNELS = tuple(ENTRIES)
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = shutil.which("nvcc")
+    if path is None and CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if path is None or not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def library_path(name):
+    """Where the built library of kernel `name` lives (content-addressed)."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _compile_cmd(name, out):
+    return [_nvcc(), *NVCC_FLAGS, "-o", out,
+            os.path.join(CSRC, name + ".cu")]
+
+
+def build(names=KERNELS):
+    """Compile every kernel in `names` that is not built yet, one nvcc
+    process per source, all started together. Returns the library paths."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        path = library_path(name)
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs.append((name, path, tmp, subprocess.Popen(
+            _compile_cmd(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, path, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, path)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(n) for n in names]
+
+
+def load(name):
+    """The C entry of kernel `name` (a ctypes function), built on first
+    use."""
+    fn = _libs.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _libs.get(name)
+        if fn is None:
+            path = library_path(name)
+            if not os.path.exists(path):
+                build((name,))
+            symbol, argtypes = ENTRIES[name]
+            fn = getattr(ctypes.CDLL(path), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = fn
+        return fn
+
+
+def check(status, what):
+    """Raise if a C entry returned a nonzero cudaError_t."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def stream_ptr(device):
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

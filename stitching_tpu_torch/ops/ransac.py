@@ -1,0 +1,209 @@
+"""Batched fixed-iteration RANSAC homography, over a batch of image pairs.
+
+Port of `stitching_tpu/ops/ransac.py::ransac_homography` (which the JAX
+matcher vmaps over pairs; here the pair axis P is written out). A static
+batch of 512 minimal samples per pair is drawn at once, all 8x8 systems are
+solved batched, every hypothesis is scored against every point as one
+(P, K, M) tensor, and the best by inlier count is refined by 2 reweighted
+least-squares passes on its inliers.
+
+The minimal samples are the top-4 of `jax.random.uniform(PRNGKey(seed),
+(512, M))`; `threefry_uniform` reproduces that draw bit for bit (threefry
+2x32 over a partitionable 64-bit iota, as JAX draws it), so the port picks
+the same hypotheses as the reference.
+"""
+
+import math
+
+import torch
+
+RANSAC_THRESH = 3.0       # px, cv.findHomography's default in cv.detail
+N_HYPOTHESES = 512
+
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(v, r):
+    return ((v << r) | (v >> (32 - r))) & _MASK32
+
+
+def threefry2x32(k1, k2, x0, x1):
+    """Threefry-2x32 (20 rounds) on uint32 values held in int64 tensors."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def threefry_uniform(seeds, shape, device=None):
+    """`jax.random.uniform(jax.random.PRNGKey(seed), shape)` per seed.
+
+    seeds: (P,) uint32 seeds (any integer tensor or sequence). Returns
+    (P, *shape) float32 in [0, 1): key (0, seed), counters the flat index
+    split into high/low 32-bit words, bits = out0 ^ out1, and the float
+    from the top 23 bits.
+    """
+    seeds = torch.as_tensor(seeds, device=device).to(torch.int64) & _MASK32
+    n = math.prod(shape)
+    count = torch.arange(n, dtype=torch.int64, device=seeds.device)
+    k2 = seeds[:, None]
+    x0, x1 = threefry2x32(torch.zeros_like(k2), k2,
+                          (count >> 32)[None, :], (count & _MASK32)[None, :])
+    bits = x0 ^ x1
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return f.reshape((seeds.shape[0],) + tuple(shape))
+
+
+def _normalize_points(pts, valid):
+    """Hartley normalization over valid points -> (T (P,3,3), pts_norm)."""
+    w = valid.to(torch.float32)
+    n = torch.clamp_min(w.sum(-1), 1.0)                        # (P,)
+    mean = (pts * w[..., None]).sum(-2) / n[:, None]           # (P, 2)
+    d = torch.sqrt(((pts - mean[:, None]) ** 2).sum(-1)) * w
+    scale = math.sqrt(2.0) / torch.clamp_min(d.sum(-1) / n, 1e-8)
+    P = pts.shape[0]
+    T = torch.zeros((P, 3, 3), dtype=pts.dtype, device=pts.device)
+    T[:, 0, 0] = scale
+    T[:, 1, 1] = scale
+    T[:, 0, 2] = -mean[:, 0] * scale
+    T[:, 1, 2] = -mean[:, 1] * scale
+    T[:, 2, 2] = 1.0
+    return T, (pts - mean[:, None]) * scale[:, None, None]
+
+
+def _h_from_4pts(src4, dst4):
+    """Batched DLT with h33=1: src4/dst4 (..., 4, 2) -> H (..., 3, 3)."""
+    x, y = src4[..., 0], src4[..., 1]
+    u, v = dst4[..., 0], dst4[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    rows_u = torch.stack([x, y, o, z, z, z, -u * x, -u * y], dim=-1)
+    rows_v = torch.stack([z, z, z, x, y, o, -v * x, -v * y], dim=-1)
+    A = torch.cat([rows_u, rows_v], dim=-2)                    # (..., 8, 8)
+    b = torch.cat([u, v], dim=-1)[..., None]                   # (..., 8, 1)
+    # Guard singular systems with a tiny ridge; degenerate hypotheses lose
+    # the inlier vote anyway. A system that stays singular yields non-finite
+    # entries (as the reference's solve does), never an error: its
+    # projections fail every inlier test.
+    A = A + 1e-9 * torch.eye(8, dtype=A.dtype, device=A.device)
+    h = torch.linalg.solve_ex(A, b).result[..., 0]             # (..., 8)
+    ones = torch.ones(h.shape[:-1] + (1,), dtype=h.dtype, device=h.device)
+    return torch.cat([h, ones], dim=-1).reshape(h.shape[:-1] + (3, 3))
+
+
+def _apply_h(H, pts):
+    """H: (P, ..., 3, 3); pts (P, M, 2) -> (P, ..., M, 2)."""
+    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    if H.dim() == 4:
+        q = torch.einsum("pkij,pmj->pkmi", H, ph)
+    else:
+        q = torch.einsum("pij,pmj->pmi", H, ph)
+    z = q[..., 2:]
+    z = torch.where(z.abs() < 1e-12, 1e-12, z)
+    return q[..., :2] / z
+
+
+def _fit_h_lsq(src, dst, weights):
+    """Weighted DLT over all points: eigenvector of A^T W A (P, 9, 9)."""
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    ru = torch.stack([x, y, o, z, z, z, -u * x, -u * y, -u], dim=-1)
+    rv = torch.stack([z, z, z, x, y, o, -v * x, -v * y, -v], dim=-1)
+    A = torch.cat([ru, rv], dim=-2)                            # (P, 2M, 9)
+    w = torch.cat([weights, weights], dim=-1)
+    M9 = (A * w[..., None]).transpose(-1, -2) @ A
+    _, evecs = torch.linalg.eigh(M9)
+    return evecs[..., :, 0].reshape(-1, 3, 3)
+
+
+def _spread(pts, min_d):
+    """(P, K, 4, 2) -> (P, K): every pair of the 4 points is farther apart
+    than min_d (P,)."""
+    d = pts[..., :, None, :] - pts[..., None, :, :]
+    d2 = (d * d).sum(-1)
+    off_diag = ~torch.eye(4, dtype=torch.bool, device=pts.device)
+    far = (torch.where(off_diag, d2, math.inf)
+           > (min_d ** 2)[:, None, None, None])
+    return far.all(dim=-1).all(dim=-1)
+
+
+def ransac_homography(src, dst, valid, seeds):
+    """RANSAC homography fit for P pairs at once.
+
+    Args: src, dst (P, M, 2) float32; valid (P, M) bool; seeds (P,) uint32.
+    Returns dict(H (P,3,3) f32 src->dst, inliers (P,M) bool,
+                 num_inliers (P,) int32, ok (P,) bool).
+    """
+    P, M = valid.shape
+    dev = src.device
+    nvalid = valid.sum(-1)                                      # (P,)
+
+    # Compact valid points to the front so hypothesis sampling hits them.
+    order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+    src_c = torch.gather(src, 1, order[..., None].expand(-1, -1, 2))
+    dst_c = torch.gather(dst, 1, order[..., None].expand(-1, -1, 2))
+    valid_c = torch.gather(valid, 1, order)
+
+    Ts, src_n = _normalize_points(src_c, valid_c)
+    Td, dst_n = _normalize_points(dst_c, valid_c)
+
+    # Duplicate-free minimal samples: top-4 of per-hypothesis noise
+    # restricted to the compacted valid prefix (lax.top_k's tie order).
+    noise = threefry_uniform(seeds, (N_HYPOTHESES, M), device=dev)
+    cols = torch.arange(M, device=dev)
+    noise = torch.where(cols[None, None, :] < nvalid[:, None, None],
+                        noise, -1.0)
+    idx = torch.sort(noise, dim=-1, descending=True,
+                     stable=True).indices[..., :4]              # (P, K, 4)
+
+    def take(pts):
+        flat = idx.reshape(P, -1)
+        g = torch.gather(pts, 1, flat[..., None].expand(-1, -1, 2))
+        return g.reshape(P, N_HYPOTHESES, 4, 2)
+
+    s4, d4 = take(src_n), take(dst_n)
+    scale_s = Ts[:, 0, 0]
+    scale_d = Td[:, 0, 0]
+    hyp_ok = _spread(s4, scale_s) & _spread(d4, scale_d)       # (P, K)
+
+    H_n = _h_from_4pts(s4, d4)                                  # (P,K,3,3)
+    proj = _apply_h(H_n, src_n)                                 # (P,K,M,2)
+    err2 = ((proj - dst_n[:, None]) ** 2).sum(-1)               # (P,K,M)
+    th2 = (RANSAC_THRESH * scale_d) ** 2                        # (P,)
+    inl = ((err2 < th2[:, None, None]) & valid_c[:, None, :]
+           & hyp_ok[..., None])
+    counts = inl.sum(-1)
+    # Tie-break equal counts by total inlier error.
+    score = counts.to(torch.float32) - torch.where(
+        inl, err2, 0.0).sum(-1) * 1e-8
+    score = torch.where(hyp_ok, score, -math.inf)
+    best = torch.argmax(score, dim=-1)                          # (P,)
+    inliers_c = torch.gather(
+        inl, 1, best[:, None, None].expand(-1, 1, M))[:, 0]
+    any_hyp = hyp_ok.any(-1)
+
+    # Refine on inliers (2 reweighted passes).
+    for _ in range(2):
+        H_ref = _fit_h_lsq(src_n, dst_n, inliers_c.to(torch.float32))
+        err2_1 = ((_apply_h(H_ref, src_n) - dst_n) ** 2).sum(-1)
+        inliers_c = (err2_1 < th2[:, None]) & valid_c
+
+    # Denormalize: H = Td^-1 @ H_n @ Ts.
+    H = torch.linalg.solve(Td, H_ref @ Ts)
+    h22 = H[:, 2, 2]
+    H = H / torch.where(h22.abs() < 1e-12, 1e-12, h22)[:, None, None]
+
+    # Scatter inlier mask back to the original point order.
+    inliers = torch.zeros_like(valid).scatter(1, order, inliers_c)
+    num = inliers.sum(-1).to(torch.int32)
+    ok = (nvalid >= 4) & (num >= 4) & any_hyp
+    return dict(H=H, inliers=inliers, num_inliers=num, ok=ok)

@@ -1,0 +1,269 @@
+"""Batched stitching stages on the card: stacks, resize, detect, match.
+
+Port of `stitching_tpu/pipeline.py`. Every stage operates on a stacked batch
+living in device memory:
+
+- all images upload ONCE as a padded (B, H, W, C) stack (uint8 over the
+  link, widened to float32 on the card);
+- per-resolution resizes are one batched gather over the stack;
+- detection runs once over the whole batch (`ops/orb.detect_orb`);
+- matching + RANSAC runs the whole C(B,2) pair axis at once: the 2-NN is
+  the CUDA kernel `ops/kernels/two_nn.two_nn_pairs`, ratio/union and
+  RANSAC are batched over pairs.
+
+Stacks pad to multiples of 64; true per-image sizes ride along as host
+metadata.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .ops.color import bgr_to_gray
+from .ops.fma import fma
+from .ops.kernels.two_nn import two_nn_pairs
+from .ops.match import ratio_union
+from .ops.orb import detect_orb
+from .ops.ransac import ransac_homography
+
+_BUCKET = 64
+
+
+def _round_up(x, m=_BUCKET):
+    return int(-(-x // m) * m)
+
+
+# ---------------------------------------------------------------------------
+# Image stacks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeviceStack:
+    """A batch of images padded to one shape, resident on the card.
+
+    data: (B, H, W, C) float32; per-image true content occupies
+    [0:h_i, 0:w_i] (bottom/right padding is edge-replication).
+    sizes: host (B, 2) int array of true (w, h).
+    """
+
+    data: torch.Tensor
+    sizes: np.ndarray
+
+    @property
+    def batch(self):
+        return self.data.shape[0]
+
+
+def stack_images(imgs, device="cuda"):
+    """Upload a list of HxW[xC] uint8/float images as one padded stack.
+
+    uint8 inputs transfer as uint8 (4x less host->device traffic) and
+    widen to float32 on the card.
+    """
+    arrs = [np.asarray(im) for im in imgs]
+    chans = 3 if any(a.ndim == 3 for a in arrs) else 1
+    hp = _round_up(max(a.shape[0] for a in arrs))
+    wp = _round_up(max(a.shape[1] for a in arrs))
+    b = len(arrs)
+    u8 = all(a.dtype == np.uint8 for a in arrs)
+    out = np.zeros((b, hp, wp, chans), np.uint8 if u8 else np.float32)
+    sizes = np.ones((b, 2), np.int32)
+    for i, a in enumerate(arrs):
+        if a.ndim == 2:
+            a = a[..., None]
+        if a.shape[2] == 1 and chans == 3:
+            a = np.repeat(a, 3, axis=2)
+        h, w = a.shape[:2]
+        out[i, :h, :w] = a
+        # edge-replicate so downstream bilinear taps never mix in zeros
+        out[i, h:, :w] = out[i, h - 1: h, :w]
+        out[i, :, w:] = out[i, :, w - 1: w]
+        sizes[i] = (w, h)
+    data = torch.from_numpy(out).to(device).to(torch.float32)
+    return DeviceStack(data, sizes)
+
+
+def _resize_coords(n_out, in_len, out_len, limit):
+    """Half-pixel source positions for every image: (B, n_out) lower tap,
+    upper tap and lerp weight (float32, as `_resize_kernel` computes them)."""
+    dev = in_len.device
+    s = in_len / out_len                                        # (B,)
+    pos = fma(torch.arange(n_out, dtype=torch.float32, device=dev)[None]
+              + 0.5, s[:, None], -0.5)
+    pos = torch.minimum(torch.clamp_min(pos, 0.0), in_len[:, None] - 1.0)
+    p0 = torch.floor(pos)
+    i0 = p0.long().clamp(0, limit - 1)
+    i1 = (i0 + 1).clamp_max(limit - 1)
+    return i0, i1, pos - p0
+
+
+def resize_stack(stack: DeviceStack, out_sizes) -> DeviceStack:
+    """Resize every image in the stack to its own (w, h) in `out_sizes`:
+    batched per-image bilinear with half-pixel centers; output content
+    occupies [0:out_h_i, 0:out_w_i] with clamp-replicated padding beyond."""
+    out_sizes = np.asarray(out_sizes, np.int32)
+    if np.array_equal(out_sizes, stack.sizes):
+        return stack
+    data = stack.data
+    B, H, W, C = data.shape
+    dev = data.device
+    oh = _round_up(int(out_sizes[:, 1].max()))
+    ow = _round_up(int(out_sizes[:, 0].max()))
+    isz = torch.as_tensor(stack.sizes, dtype=torch.float32, device=dev)
+    osz = torch.as_tensor(out_sizes, dtype=torch.float32, device=dev)
+    x0, x1, fx = _resize_coords(ow, isz[:, 0], osz[:, 0], W)
+    y0, y1, fy = _resize_coords(oh, isz[:, 1], osz[:, 1], H)
+    bi = torch.arange(B, device=dev)[:, None, None]
+
+    def tap(yy, xx):
+        return data[bi, yy[:, :, None], xx[:, None, :]]        # (B,oh,ow,C)
+
+    fx = fx[:, None, :, None]
+    fy = fy[:, :, None, None]
+    r0 = fma(tap(y0, x0), 1 - fx, tap(y0, x1) * fx)
+    r1 = fma(tap(y1, x0), 1 - fx, tap(y1, x1) * fx)
+    return DeviceStack(fma(r0, 1 - fy, r1 * fy), out_sizes)
+
+
+# ---------------------------------------------------------------------------
+# Batched detection
+# ---------------------------------------------------------------------------
+
+def detect_stack(stack: DeviceStack, *, nfeatures, variant="orb",
+                 feature_masks=None):
+    """Detect keypoints on every image of the stack at once.
+
+    Returns a dict of stacked tensors: xy (B,N,2), response (B,N),
+    size (B,N), angle_deg (B,N), desc (B,N,D), valid (B,N).
+    """
+    if variant != "orb":
+        raise NotImplementedError(
+            f"detector={variant!r} is not ported yet (ROADMAP queue 1: "
+            "SIFT/BRISK/AKAZE)")
+    data = stack.data
+    dev = data.device
+    B, h, w = data.shape[0], data.shape[1], data.shape[2]
+    gray = bgr_to_gray(data) if data.shape[-1] == 3 else data[..., 0]
+    sizes = torch.as_tensor(stack.sizes, device=dev)
+    cols = torch.arange(w, device=dev)[None, None, :]
+    rows = torch.arange(h, device=dev)[None, :, None]
+    region = ((cols < sizes[:, 0][:, None, None])
+              & (rows < sizes[:, 1][:, None, None]))
+    if feature_masks is not None:
+        fm = np.zeros((B, h, w), bool)
+        for i, m in enumerate(feature_masks):
+            if m is None:
+                fm[i] = True
+            else:
+                mh, mw = m.shape[:2]
+                fm[i, :mh, :mw] = np.asarray(m) > 0
+        region = region & torch.as_tensor(fm, device=dev)
+    return detect_orb(gray, region, nfeatures=nfeatures)
+
+
+# ---------------------------------------------------------------------------
+# Batched pair matching + RANSAC
+# ---------------------------------------------------------------------------
+
+def make_pairs(n, range_width=-1):
+    """Host pair list (i < j), optionally banded by |i-j| <= range_width."""
+    out = [(i, j) for i in range(n) for j in range(i + 1, n)
+           if range_width == -1 or j - i <= range_width]
+    return np.asarray(out, np.int32).reshape(-1, 2)
+
+
+def _match_pairs(desc, valid, xy, centers, pair_ij, seeds, match_conf, *,
+                 is_binary):
+    """All pairs of one chunk at once.
+
+    desc: (B, N, D); valid: (B, N); xy: (B, N, 2); centers: (B, 2);
+    pair_ij: (P, 2) int32; seeds: (P,) uint32 seeds (int64 tensor).
+    """
+    d0, d1, i0 = two_nn_pairs(desc, valid, pair_ij, is_binary=is_binary)
+    if not is_binary:
+        d0 = torch.sqrt(d0)
+        d1 = torch.sqrt(d1)
+    pi = pair_ij[:, 0].long()
+    pj = pair_ij[:, 1].long()
+    pairs, mvalid = ratio_union(d0[:, 0], d1[:, 0], i0[:, 0],
+                                d0[:, 1], d1[:, 1], i0[:, 1],
+                                valid[pi], valid[pj], match_conf)
+
+    def pts(img_idx, col):
+        g = torch.gather(xy[img_idx], 1,
+                         pairs[..., col, None].expand(-1, -1, 2))
+        return g - centers[img_idx][:, None, :]
+
+    r = ransac_homography(pts(pi, 0), pts(pj, 1), mvalid, seeds)
+    nm = mvalid.sum(-1)
+    ni = torch.where(r["ok"], r["num_inliers"], 0)
+    conf = ni.to(torch.float32) / fma(nm.to(torch.float32), 0.3, 8.0)
+    conf = torch.where((conf > 3.0) | (nm < 6) | ~r["ok"], 0.0, conf)
+    return dict(pairs=pairs.to(torch.int32), matches_valid=mvalid,
+                H=r["H"], inliers=r["inliers"] & (conf > 0)[:, None],
+                num_inliers=torch.where(conf > 0, ni, 0),
+                num_matches=nm, confidence=conf,
+                ok=r["ok"] & (conf > 0))
+
+
+def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
+                         match_conf=0.3, range_width=-1, is_binary=True,
+                         n_images=None):
+    """Launch the batched pair matcher without copying results to host.
+
+    Returns (pair_list, [(device_out, n_valid), ...]) — one entry per pair
+    chunk; `match_stack_fetch` copies them to host.
+    """
+    if matcher_type != "homography":
+        raise NotImplementedError(
+            f"matcher_type={matcher_type!r} is not ported yet (ROADMAP "
+            "queue 1: other settings)")
+    desc = feats["desc"]
+    dev = desc.device
+    n = n_images if n_images is not None else desc.shape[0]
+    pair_ij = make_pairs(n, range_width)
+    if len(pair_ij) == 0:
+        return pair_ij, None
+    seeds = (pair_ij[:, 0].astype(np.uint32) * np.uint32(n)
+             + pair_ij[:, 1].astype(np.uint32))
+    b = desc.shape[0]
+    centers = np.zeros((b, 2), np.float32)
+    centers[:len(img_sizes)] = np.asarray(img_sizes, np.float32) * 0.5
+    centers = torch.as_tensor(centers, device=dev)
+    valid = torch.as_tensor(feats["valid"], device=dev)
+    xy = torch.as_tensor(feats["xy"], device=dev)
+
+    # chunk the pair axis: the batched program holds O(P * N * N) distance
+    # state, which at the 100+-image scale (P ~ 5000) would not fit memory
+    nn = desc.shape[1]
+    chunk_cap = max(64, int(2_000_000_000 // max(4 * nn * nn, 1)))
+    chunks = []
+    total = len(pair_ij)
+    for lo in range(0, total, chunk_cap):
+        hi = min(lo + chunk_cap, total)
+        pair_t = torch.as_tensor(pair_ij[lo:hi], device=dev)
+        seed_t = torch.as_tensor(seeds[lo:hi].astype(np.int64), device=dev)
+        out = _match_pairs(desc, valid, xy, centers, pair_t, seed_t,
+                           float(match_conf), is_binary=is_binary)
+        chunks.append((out, hi - lo))
+    return pair_ij, chunks
+
+
+def match_stack_fetch(chunks):
+    """Copy dispatched match chunks to host -> dict of numpy arrays."""
+    host = [{k: v.cpu().numpy()[:nv] for k, v in out.items()}
+            for out, nv in chunks]
+    return {k: np.concatenate([c[k] for c in host]) for k in host[0]}
+
+
+def match_stack(feats, img_sizes, **kwargs):
+    """Match every image pair; results copied to host.
+
+    Returns (pair_list, results) where results is a dict of numpy arrays
+    with leading pair axis (None when there is no pair).
+    """
+    pair_ij, chunks = match_stack_dispatch(feats, img_sizes, **kwargs)
+    if chunks is None:
+        return pair_ij, None
+    return pair_ij, match_stack_fetch(chunks)

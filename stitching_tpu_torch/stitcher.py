@@ -1,0 +1,119 @@
+"""Public stitching API: `Stitcher`.
+
+Port of `stitching_tpu/stitcher.py`: the same settings schema with the
+same defaults, unknown-kwarg `StitchingError`, the ORB match_conf default
+resolution and nfeatures forwarding, and the MEDIUM / LOW / FINAL
+resolution semantics. `device=` takes the place of the JAX package's
+`mesh=`: the pipeline runs on that device, the card by default.
+
+Settings the port does not implement yet raise `NotImplementedError` from
+the component that owns them, naming the setting and the ROADMAP item that
+ports it. `SLICE` is the configuration that runs today.
+"""
+
+import torch
+
+from . import engine
+from .blender import Blender
+from .camera_adjuster import CameraAdjuster
+from .camera_estimator import CameraEstimator
+from .camera_wave_corrector import WaveCorrector
+from .cropper import Cropper
+from .errors import StitchingError
+from .exposure_error_compensator import ExposureErrorCompensator
+from .feature_detector import FeatureDetector
+from .feature_matcher import FeatureMatcher
+from .images import Images
+from .seam_finder import SeamFinder
+from .subsetter import Subsetter
+from .timelapser import Timelapser
+from .warper import Warper
+
+# The ported slice: the reference CLI's `--adjuster no --wave_correct_kind
+# no --compensator no --finder no --blender_type no` with crop disabled.
+SLICE = dict(crop=False, adjuster="no", wave_correct_kind="no",
+             compensator="no", finder="no", blender_type="no")
+
+
+class Stitcher:
+    DEFAULT_SETTINGS = {
+        "medium_megapix": Images.Resolution.MEDIUM.value,
+        "detector": FeatureDetector.DEFAULT_DETECTOR,
+        "nfeatures": 500,
+        "matcher_type": FeatureMatcher.DEFAULT_MATCHER,
+        "range_width": FeatureMatcher.DEFAULT_RANGE_WIDTH,
+        "try_use_gpu": False,
+        "match_conf": None,
+        "confidence_threshold": Subsetter.DEFAULT_CONFIDENCE_THRESHOLD,
+        "matches_graph_dot_file": Subsetter.DEFAULT_MATCHES_GRAPH_DOT_FILE,
+        "estimator": CameraEstimator.DEFAULT_CAMERA_ESTIMATOR,
+        "adjuster": CameraAdjuster.DEFAULT_CAMERA_ADJUSTER,
+        "refinement_mask": CameraAdjuster.DEFAULT_REFINEMENT_MASK,
+        "wave_correct_kind": WaveCorrector.DEFAULT_WAVE_CORRECTION,
+        "warper_type": Warper.DEFAULT_WARP_TYPE,
+        "low_megapix": Images.Resolution.LOW.value,
+        "crop": Cropper.DEFAULT_CROP,
+        "compensator": ExposureErrorCompensator.DEFAULT_COMPENSATOR,
+        "nr_feeds": ExposureErrorCompensator.DEFAULT_NR_FEEDS,
+        "block_size": ExposureErrorCompensator.DEFAULT_BLOCK_SIZE,
+        "finder": SeamFinder.DEFAULT_SEAM_FINDER,
+        "final_megapix": Images.Resolution.FINAL.value,
+        "blender_type": Blender.DEFAULT_BLENDER,
+        "blend_strength": Blender.DEFAULT_BLEND_STRENGTH,
+        "timelapse": Timelapser.DEFAULT_TIMELAPSE,
+        "timelapse_prefix": Timelapser.DEFAULT_TIMELAPSE_PREFIX,
+    }
+
+    def __init__(self, device="cuda", **kwargs):
+        self.device = torch.device(device)
+        self.initialize_stitcher(**kwargs)
+
+    def initialize_stitcher(self, **kwargs):
+        self.validate_kwargs(kwargs)
+        self.kwargs = kwargs
+        self.settings = {**self.DEFAULT_SETTINGS, **kwargs}
+        self._build_components(self.settings)
+
+    def _build_components(self, s):
+        """Construct the per-stage components from the resolved settings."""
+        self.medium_megapix = s["medium_megapix"]
+        self.low_megapix = s["low_megapix"]
+        self.final_megapix = s["final_megapix"]
+
+        detector_kwargs = (
+            {"nfeatures": s["nfeatures"]}
+            if s["detector"] in ("orb", "sift") else {})
+        self.detector = FeatureDetector(s["detector"], device=self.device,
+                                        **detector_kwargs)
+        self.matcher = FeatureMatcher(
+            s["matcher_type"], s["range_width"],
+            try_use_gpu=s["try_use_gpu"],
+            match_conf=FeatureMatcher.get_match_conf(
+                s["match_conf"], s["detector"]))
+        self.subsetter = Subsetter(
+            s["confidence_threshold"], s["matches_graph_dot_file"])
+        self.camera_estimator = CameraEstimator(s["estimator"])
+        self.camera_adjuster = CameraAdjuster(
+            s["adjuster"], s["refinement_mask"], s["confidence_threshold"])
+        self.wave_corrector = WaveCorrector(s["wave_correct_kind"])
+        self.warper = Warper(s["warper_type"])
+        self.cropper = Cropper(s["crop"])
+        self.compensator = ExposureErrorCompensator(
+            s["compensator"], s["nr_feeds"], s["block_size"])
+        self.seam_finder = SeamFinder(s["finder"])
+        self.blender = Blender(s["blender_type"], s["blend_strength"])
+        self.timelapser = Timelapser(s["timelapse"], s["timelapse_prefix"])
+
+    def stitch(self, images, feature_masks=[]):
+        """Stitch the image set into a panorama (uint8 host array)."""
+        # The reference computes in float32. cuDNN's float32 convolutions
+        # and cuBLAS's float32 products may use TF32 unless told not to,
+        # which would perturb the ORB scores and the camera math.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return engine.run(self, images, feature_masks)
+
+    def validate_kwargs(self, kwargs):
+        for arg in kwargs:
+            if arg not in self.DEFAULT_SETTINGS:
+                raise StitchingError("Invalid Argument: " + arg)
