@@ -4,19 +4,26 @@
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds every CUDA kernel of the port from `stitching_tpu_torch/csrc`;
-3. drives the port's main path, `Stitcher(**SLICE).stitch`, on 8 rendered
-   views of 1600x1200 (the bench workload: focal 1400, +-0.6 rad), once
-   to warm up and once with the kernels' launch counters set to 0, and
-   fails unless each kernel of the path launched;
+3. drives the port's paths on 8 rendered views of 1600x1200 (the bench
+   workload: focal 1400, +-0.6 rad), each once to warm up and once with
+   the kernels' launch counters set to 0 just before and read just after,
+   and fails unless each kernel of the path launched:
+   - `Stitcher(**SLICE).stitch` (the first slice),
+   - `Stitcher(**SLICE2).stitch` (bundle adjustment, wave correction,
+     crop, block-gain exposure), with its stages timed between syncs,
+   - `pipeline.register_pair` on the first two views at MEDIUM size,
+   - the matchers on float descriptors (128 wide, made from a seed):
+     `FeatureMatcher.match_features` and `ops.match.match_pair`;
 4. holds each kernel against its plain PyTorch version on the very inputs
-   the main path gave it, and times kernel, plain version and, where one
+   the paths gave it, and times kernel, plain version and, where one
    exists, a PyTorch library call computing the same function (device
    time per call from a CUDA graph replay; the kernel wrapper's
    CUDA-event time, host launch included, beside it);
-5. times the stages once more, each ended by a sync, and profiles one
-   stitch (device busy share, the device operations that take longest);
-6. checks the output: the cameras against the rendered ground truth, and
-   the card's panorama against the CPU's on a small input;
+5. profiles one `SLICE2` stitch (device busy share, the device operations
+   that take longest);
+6. checks the output: the cameras against the rendered ground truth, the
+   pair's homography against the rendered one, and the card's panoramas
+   against the CPU's on a small input;
 7. prints the kernels line, the card line and, last, the result line.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -175,18 +182,79 @@ class Recorder:
         return self.fn(*args, **kwargs)
 
 
-def check_two_nn(call):
+def bounds_of(nbytes, ops, ops_per_s):
+    """bound_ms and bound_by from the bytes moved and operations done."""
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": ops / ops_per_s * 1e3}
+    by = max(bounds, key=bounds.get)
+    return dict(bound_ms=bounds[by], bound_by=by), bounds
+
+
+def float_two_nn_err(got, ref, desc_q, desc_t, what):
+    """The float 2-NN's stated tolerance: d0 and d1 within 1e-3 relative +
+    1e-3 absolute of the plain version's; i0 equal wherever the plain
+    d1 - d0 exceeds twice that, and elsewhere a target no further than the
+    plain d1. desc_q/desc_t: (..., N, D) with the outputs' leading axes.
+    Returns the largest absolute error of d0 and d1 at valid targets."""
+    (gd0, gd1, gi0), (rd0, rd1, ri0) = got, ref
+    tol0 = 1e-3 * rd0.abs() + 1e-3
+    tol1 = 1e-3 * rd1.abs() + 1e-3
+    if not (bool(((gd0 - rd0).abs() <= tol0).all())
+            and bool(((gd1 - rd1).abs() <= tol1).all())):
+        raise AssertionError(f"{what}: distances differ from the plain "
+                             "version beyond 1e-3 relative + 1e-3")
+    clear = (rd1 - rd0) > 2 * tol0
+    if not torch.equal(gi0[clear], ri0[clear]):
+        raise AssertionError(f"{what}: i0 differs from the plain version "
+                             "where its two nearest are apart")
+    near = (rd0 < 1e29) & ~clear
+    picked = torch.gather(
+        desc_t, -2, gi0.long()[..., None].expand(*gi0.shape,
+                                                 desc_t.shape[-1]))
+    direct = ((desc_q.double() - picked.double()) ** 2).sum(-1)
+    if not bool((direct[near] <= rd1[near] * 1.001 + 1e-3).all()):
+        raise AssertionError(f"{what}: i0 is not one of the two nearest")
+    real = rd1 < 1e29
+    return float(torch.stack([(gd0 - rd0).abs()[real].max(),
+                              (gd1 - rd1).abs()[real].max()]).max())
+
+
+def equal_two_nn_pairs(call, what):
+    """`two_nn_pairs` (binary) equal to its plain version on one recorded
+    call, without timing it."""
+    from stitching_tpu_torch.ops.kernels.two_nn import (two_nn_pairs,
+                                                        two_nn_pairs_plain)
+
+    args, kw = call
+    out = two_nn_pairs(*args, **kw)
+    ref = two_nn_pairs_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d0", "d1", "i0"), out, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} {name} differs from the plain "
+                                 "version")
+    print(f"{what} desc {tuple(args[0].shape)}: equal to plain", flush=True)
+
+
+def check_two_nn_pairs(call, what):
+    """`two_nn_pairs` against its plain version on one recorded call."""
     from stitching_tpu_torch.ops.kernels.two_nn import (two_nn_pairs,
                                                         two_nn_pairs_plain)
 
     (desc, valid, pair_ij), kw = call
+    is_binary = kw.get("is_binary", True)
     out = two_nn_pairs(desc, valid, pair_ij, **kw)
     ref = two_nn_pairs_plain(desc, valid, pair_ij, **kw)
     torch.cuda.synchronize()
-    for name, a, b in zip(("d0", "d1", "i0"), out, ref):
-        if not torch.equal(a, b):
-            raise AssertionError(f"two_nn_pairs {name} differs from the "
-                                 "plain version")
+    if is_binary:
+        for name, a, b in zip(("d0", "d1", "i0"), out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} {name} differs from the "
+                                     "plain version")
+        err = 0.0
+    else:
+        pij = pair_ij.long()
+        err = float_two_nn_err(out, ref, desc[pij], desc[pij.flip(1)], what)
     B, N, D = desc.shape
     P = pair_ij.shape[0]
     times = kernel_times(
@@ -194,16 +262,68 @@ def check_two_nn(call):
         lambda: two_nn_pairs_plain(desc, valid, pair_ij, **kw), iters=50)
     nbytes = (desc.numel() * 4 + valid.numel() + pair_ij.numel() * 4
               + 3 * P * 2 * N * 4)
-    # the distance products: 2 ops per bit pair, exact in int8
-    ops = 2.0 * P * 2 * N * N * D
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": ops / INT8_OPS_PER_S * 1e3}
-    print(f"two_nn_pairs desc {tuple(desc.shape)} P={P}: equal to plain; "
-          f"{times_text(times)} bound_us bytes={bounds['bytes'] * 1e3:.2f} "
-          f"ops={bounds['operations'] * 1e3:.2f}", flush=True)
-    bound_by = max(bounds, key=bounds.get)
-    return dict(max_abs_err=0.0, bound_ms=bounds[bound_by],
-                bound_by=bound_by, **times)
+    # the distance products: 2 operations per element pair; exact in int8
+    # for {0,1} rows, float32 FMAs outside the tensor cores otherwise. One
+    # N x N product per pair serves both directions (the backward
+    # direction's is its transpose)
+    ops = 2.0 * P * N * N * D
+    bound, both = bounds_of(nbytes, ops, INT8_OPS_PER_S if is_binary
+                            else FP32_FLOPS_PER_S)
+    print(f"{what} desc {tuple(desc.shape)} P={P}: max_abs_err={err:.3g} "
+          f"against plain; {times_text(times)} bound_us "
+          f"bytes={both['bytes'] * 1e3:.2f} "
+          f"ops={both['operations'] * 1e3:.2f}", flush=True)
+    return dict(max_abs_err=err, **bound, **times)
+
+
+def check_two_nn(calls, what):
+    """`two_nn` against its plain version on the recorded calls, and (for
+    binary rows of equal count) against `two_nn_pairs`' forward direction:
+    with a padded column under both paddings the two are equal exactly.
+    Also a rectangular case: the first call's queries against its first
+    300 targets. Times the first call."""
+    from stitching_tpu_torch.ops.kernels.two_nn import (two_nn,
+                                                        two_nn_pairs,
+                                                        two_nn_plain)
+
+    (q, t, vt), kw = calls[0]
+    is_binary = kw.get("is_binary", True)
+    cases = [c[0] for c in calls] + [(q, t[:300].contiguous(), vt[:300])]
+    err = 0.0
+    for dq, dt, dv in cases:
+        out = two_nn(dq, dt, dv, **kw)
+        ref = two_nn_plain(dq, dt, dv, **kw)
+        torch.cuda.synchronize()
+        if is_binary:
+            for name, a, b in zip(("d0", "d1", "i0"), out, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{what} {name} differs from the plain version at "
+                        f"{tuple(dq.shape)} x {tuple(dt.shape)}")
+        else:
+            err = max(err, float_two_nn_err(out, ref, dq, dt, what))
+    if (is_binary and q.shape[0] == t.shape[0] and q.shape[0] % 128
+            and q.shape[0] % 8):
+        pair = torch.tensor([[0, 1]], dtype=torch.int32, device=q.device)
+        both = two_nn_pairs(torch.stack([q, t]),
+                            torch.stack([torch.ones_like(vt), vt]), pair)
+        for name, a, b in zip(("d0", "d1", "i0"), two_nn(q, t, vt), both):
+            if not torch.equal(a, b[0, 0]):
+                raise AssertionError(f"{what} {name} differs from "
+                                     "two_nn_pairs' forward direction")
+    nq, D = q.shape
+    nt = t.shape[0]
+    times = kernel_times(lambda: two_nn(q, t, vt, **kw),
+                         lambda: two_nn_plain(q, t, vt, **kw), iters=50)
+    nbytes = (nq + nt) * D * 4 + nt + 3 * nq * 4
+    ops = 2.0 * nq * nt * D
+    bound, both = bounds_of(nbytes, ops, INT8_OPS_PER_S if is_binary
+                            else FP32_FLOPS_PER_S)
+    print(f"{what} {nq} x {nt} x {D} (and {nq} x 300): max_abs_err="
+          f"{err:.3g} against plain; {times_text(times)} bound_us "
+          f"bytes={both['bytes'] * 1e3:.2f} "
+          f"ops={both['operations'] * 1e3:.2f}", flush=True)
+    return dict(max_abs_err=err, **bound, **times)
 
 
 def check_sampler(calls):
@@ -243,15 +363,12 @@ def check_sampler(calls):
     # the stack, both coordinate planes and the output; `care` is not read
     nbytes = data.numel() * 4 + sxc.numel() * 8 + B * th * tw * C * 4
     ops = 9.0 * B * th * tw * C
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": ops / FP32_FLOPS_PER_S * 1e3}
+    bound, both = bounds_of(nbytes, ops, FP32_FLOPS_PER_S)
     print(f"bilinear_sample timing at {tuple(sxc.shape)}: {times_text(times)} "
           f"(library: grid_sample, max diff {lib_err:.3g}) bound_us "
-          f"bytes={bounds['bytes'] * 1e3:.2f} "
-          f"ops={bounds['operations'] * 1e3:.2f}", flush=True)
-    bound_by = max(bounds, key=bounds.get)
-    return dict(max_abs_err=max(errs), bound_ms=bounds[bound_by],
-                bound_by=bound_by, **times)
+          f"bytes={both['bytes'] * 1e3:.2f} "
+          f"ops={both['operations'] * 1e3:.2f}", flush=True)
+    return dict(max_abs_err=max(errs), **bound, **times)
 
 
 def profile_stitch(st, imgs):
@@ -283,15 +400,112 @@ def profile_stitch(st, imgs):
 
 
 def composite_with(st, imgs, cameras):
-    """The slice's compositing with the given cameras (registration runs
-    for its image bookkeeping, then its cameras are replaced)."""
+    """A slice's compositing with the given cameras (registration runs
+    for its image bookkeeping, then its cameras are replaced). Returns the
+    panorama and the plan's crop rects."""
     from stitching_tpu_torch import engine
 
     reg = engine.register(st, imgs)
     reg.cameras = [c.copy() for c in cameras]
     st.warper.set_scale(reg.cameras)
     reg.scale = st.warper.scale
-    return engine.composite(st, reg, engine.plan_composition(st, reg))
+    plan = engine.plan_composition(st, reg)
+    rects = (None if plan.crop_rects is None
+             else [tuple(int(v) for v in r) for r in plan.crop_rects])
+    return engine.composite(st, reg, plan), rects
+
+
+class StageClock:
+    """Seconds spent inside wrapped callables, each call fenced by a
+    device sync before and after."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.time() - t0)
+            return out
+        return timed
+
+
+def counted_run(name, fn, wrappers, expect, recorders=()):
+    """Drive one path: once to warm up, then with every kernel's launch
+    count set to 0 (and the recorders emptied) just before and read just
+    after. Fails unless the counts equal `expect`. Returns (result, wall
+    seconds, counts)."""
+    fn()
+    torch.cuda.synchronize()
+    for r in recorders:
+        r.calls.clear()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    print(f"{name}: wall_s={wall:.4f} launches={counts}", flush=True)
+    if counts != expect:
+        raise AssertionError(f"{name}: kernel launches {counts}, expected "
+                             f"{expect}")
+    return out, wall, counts
+
+
+def check_cameras(name, cameras, Rs_true, focal_tol):
+    """Cameras against the rendered ground truth: focal at MEDIUM scale and
+    the relative yaw (the estimate fixes rotations up to a common one and
+    a sign)."""
+    medium_scale = (0.6e6 / (1600 * 1200)) ** 0.5
+    f_true = FOCAL * medium_scale
+    focals = [c.focal for c in cameras]
+    yaw = [float(np.arctan2(c.R[0, 2], c.R[2, 2])) for c in cameras]
+    yaw_true = [float(np.arctan2(R[0, 2], R[2, 2])) for R in Rs_true]
+    yaw_err = max(abs(abs(a - yaw[0]) - abs(b - yaw_true[0]))
+                  for a, b in zip(yaw, yaw_true))
+    f_err = max(abs(f - f_true) for f in focals) / f_true
+    print(f"{name} cameras: focal {focals[0]:.2f} (true {f_true:.2f}, worst "
+          f"relative error {f_err:.4f}), relative yaw max error "
+          f"{yaw_err:.4f} rad", flush=True)
+    if f_err > focal_tol or yaw_err > 0.02:
+        raise AssertionError(f"{name}: cameras far from the rendered ground "
+                             "truth")
+    return focals[0], abs(yaw[-1] - yaw[0]), medium_scale
+
+
+def float_features(n_images, n, device, seed=0):
+    """Synthetic float features, 128 wide like SIFT's: image k + 1 holds
+    noisy copies of 300 of image k's rows, its keypoints shifted by
+    (-60, 5) (60 of them thrown off by up to 40 px: the matcher zeroes a
+    pair whose matches are all inliers), and 200 fresh rows."""
+    from stitching_tpu_torch import convert
+
+    rng = np.random.RandomState(seed)
+    w, h = 884, 663
+    feats = []
+    desc = np.abs(rng.randn(n, 128)).astype(np.float32)
+    xy = (rng.rand(n, 2) * [w, h]).astype(np.float32)
+    for _ in range(n_images):
+        d = desc * (512.0 / np.linalg.norm(desc, axis=-1, keepdims=True))
+        f = convert.features_from_numpy(
+            xy, np.ones(n), np.full(n, 31.0), np.zeros(n), d,
+            np.ones(n, bool), (w, h), is_binary=False)
+        f.desc = f.desc.to(device)
+        feats.append(f)
+        keep = rng.permutation(n)[:300]
+        desc = np.concatenate([
+            desc[keep] + 0.05 * rng.randn(300, 128),
+            np.abs(rng.randn(n - 300, 128))]).astype(np.float32)
+        moved = xy[keep] + np.float32([-60, 5])
+        moved[:60] += rng.uniform(-40, 40, (60, 2))
+        xy = np.concatenate([
+            moved, rng.rand(n - 300, 2) * [w, h]]).astype(np.float32)
+    return feats
 
 
 def main():
@@ -299,11 +513,14 @@ def main():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 2
-    from stitching_tpu_torch import SLICE, Stitcher, compose, engine, pipeline
-    from stitching_tpu_torch.ops import kernels
+    from stitching_tpu_torch import (SLICE, SLICE2, Stitcher, compose, engine,
+                                     pipeline)
+    from stitching_tpu_torch.feature_matcher import FeatureMatcher
+    from stitching_tpu_torch.images import Images
+    from stitching_tpu_torch.ops import kernels, match
     from stitching_tpu_torch.ops.kernels.bilinear_sample import (
         bilinear_sample)
-    from stitching_tpu_torch.ops.kernels.two_nn import two_nn_pairs
+    from stitching_tpu_torch.ops.kernels.two_nn import two_nn, two_nn_pairs
 
     t_start = time.time()
     card = card_line()
@@ -314,42 +531,40 @@ def main():
 
     t0 = time.time()
     kernels.build()
-    print(f"build: {len(kernels.KERNELS)} kernels in {time.time() - t0:.1f} "
-          "s", flush=True)
+    print(f"build: {len(kernels.KERNELS)} sources "
+          f"({len(kernels.ENTRIES)} C entries) in {time.time() - t0:.1f} s",
+          flush=True)
 
     dev = torch.device("cuda")
     imgs, Rs_true = rotation_set(8, (1600, 1200), FOCAL, MAX_ANGLE, dev)
     print(f"rendered {len(imgs)} views of {imgs[0].shape}", flush=True)
 
-    # the main path, with the kernels' inputs recorded at their call sites
-    rec_nn = Recorder(pipeline.two_nn_pairs)
+    # every kernel wrapper, with its inputs recorded at its call sites
+    wrappers = {"two_nn_pairs": two_nn_pairs, "two_nn": two_nn,
+                "bilinear_sample": bilinear_sample}
+    rec_pairs = Recorder(pipeline.two_nn_pairs)
+    rec_rows = Recorder(match.two_nn)
     rec_bs = Recorder(compose.bilinear_sample)
-    pipeline.two_nn_pairs = rec_nn
+    pipeline.two_nn_pairs = rec_pairs
+    match.two_nn = rec_rows
     compose.bilinear_sample = rec_bs
+    recs = (rec_pairs, rec_rows, rec_bs)
+    launches = {}
+
+    def drive(name, fn, expect):
+        out, wall, counts = counted_run(name, fn, wrappers, expect, recs)
+        launches[name] = counts
+        return out, wall, [list(r.calls) for r in recs]
+
+    # ---- path 1: the first slice -------------------------------------
     st = Stitcher(**SLICE)
-    t0 = time.time()
-    st.stitch(imgs)
-    torch.cuda.synchronize()
-    print(f"warm-up stitch: {time.time() - t0:.3f} s", flush=True)
-    rec_nn.calls.clear()
-    rec_bs.calls.clear()
-    two_nn_pairs.launches = 0
-    bilinear_sample.launches = 0
-    t0 = time.time()
-    pano = st.stitch(imgs)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {"two_nn_pairs": two_nn_pairs.launches,
-                "bilinear_sample": bilinear_sample.launches}
-    pipeline.two_nn_pairs = rec_nn.fn
-    compose.bilinear_sample = rec_bs.fn
+    pano, wall, (nn_calls, _, bs_calls) = drive(
+        "slice1", lambda: st.stitch(imgs),
+        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
     mp = pano.shape[0] * pano.shape[1] / 1e6
-    print(f"stitch: wall_s={wall:.4f} pano={pano.shape} mp={mp:.3f} "
+    print(f"slice1 stitch: wall_s={wall:.4f} pano={pano.shape} mp={mp:.3f} "
           f"mp_per_s={mp / wall:.3f} nonzero_share="
-          f"{float((pano.max(-1) > 0).mean()):.4f} launches={launches}",
-          flush=True)
-    if launches != {"two_nn_pairs": 1, "bilinear_sample": 2}:
-        raise AssertionError(f"kernel launches on the main path: {launches}")
+          f"{float((pano.max(-1) > 0).mean()):.4f}", flush=True)
 
     # where the time goes: the stages once more, each ended by a sync
     t0 = time.time()
@@ -359,75 +574,207 @@ def main():
     plan = engine.plan_composition(st, reg)
     torch.cuda.synchronize()
     t2 = time.time()
-    pano2 = engine.composite(st, reg, plan)
+    pano_again = engine.composite(st, reg, plan)
     torch.cuda.synchronize()
     t3 = time.time()
-    print(f"stages (fenced): register_s={t1 - t0:.4f} "
+    print(f"slice1 stages (fenced): register_s={t1 - t0:.4f} "
           f"plan_low_warp_s={t2 - t1:.4f} composite_final_s={t3 - t2:.4f}",
           flush=True)
-    profile_stitch(st, imgs)
-
-    # the output: its shape, cameras against the rendered ground truth
     if pano.dtype != np.uint8 or pano.ndim != 3 or pano.shape[2] != 3:
         raise AssertionError(f"panorama {pano.dtype} {pano.shape}")
-    if not np.array_equal(pano, pano2):
+    if not np.array_equal(pano, pano_again):
         raise AssertionError("two runs of the slice gave different panoramas")
-    medium_scale = (0.6e6 / (1600 * 1200)) ** 0.5
-    f_true = FOCAL * medium_scale
-    focals = [c.focal for c in reg.cameras]
-    yaw = [float(np.arctan2(c.R[0, 2], c.R[2, 2])) for c in reg.cameras]
-    yaw_true = [float(np.arctan2(R[0, 2], R[2, 2])) for R in Rs_true]
-    # the estimate fixes the rotations up to a common one and a sign
-    yaw_err = max(abs(abs(a - yaw[0]) - abs(b - yaw_true[0]))
-                  for a, b in zip(yaw, yaw_true))
-    print(f"cameras: focal {focals[0]:.2f} (true {f_true:.2f}), relative "
-          f"yaw max error {yaw_err:.4f} rad", flush=True)
-    if abs(focals[0] - f_true) > 0.05 * f_true or yaw_err > 0.02:
-        raise AssertionError("cameras far from the rendered ground truth")
-    want_w = (focals[0] * abs(yaw[-1] - yaw[0])
-              + 1600 * medium_scale) / medium_scale
+    focal, yaw_span, ms = check_cameras("slice1", reg.cameras, Rs_true, 0.05)
+    want_w = (focal * yaw_span + 1600 * ms) / ms
     if not 0.9 * want_w <= pano.shape[1] <= 1.2 * want_w:
         raise AssertionError(f"panorama width {pano.shape[1]} vs "
                              f"{want_w:.0f} expected")
 
-    # small input: the card against the CPU (plain versions), same cameras
-    small, _ = rotation_set(3, (640, 480), 600.0, 0.5, dev)
-    cpu = Stitcher(device="cpu", **SLICE)
-    cpu_reg = engine.register(cpu, small)
-    gpu_reg = engine.register(Stitcher(**SLICE), small)
-    f_cpu, f_gpu = cpu_reg.cameras[0].focal, gpu_reg.cameras[0].focal
-    pano_cpu = composite_with(cpu, small, cpu_reg.cameras)
-    pano_gpu = composite_with(Stitcher(**SLICE), small, cpu_reg.cameras)
-    if pano_cpu.shape != pano_gpu.shape:
-        raise AssertionError(f"small input: {pano_gpu.shape} on the card, "
-                             f"{pano_cpu.shape} on the CPU")
-    near = float((np.abs(pano_gpu.astype(np.int16)
-                         - pano_cpu.astype(np.int16)) <= 1).mean())
-    print(f"small input: focal card {f_gpu:.3f} cpu {f_cpu:.3f}; panorama "
-          f"{pano_gpu.shape} within 1 LSB of the CPU's at {near:.6f} of "
-          "values", flush=True)
-    if abs(f_gpu - f_cpu) > 0.02 * f_cpu or near < 0.999:
-        raise AssertionError("the card's slice disagrees with the CPU's")
+    # ---- path 2: the second slice ------------------------------------
+    st2 = Stitcher(**SLICE2)
+    pano2, wall2, (nn_calls2, _, bs_calls2) = drive(
+        "slice2", lambda: st2.stitch(imgs),
+        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+    mp2 = pano2.shape[0] * pano2.shape[1] / 1e6
+    share2 = float((pano2.max(-1) > 0).mean())
+    print(f"slice2 stitch: wall_s={wall2:.4f} pano={pano2.shape} "
+          f"mp={mp2:.3f} mp_per_s={mp2 / wall2:.3f} nonzero_share="
+          f"{share2:.4f}", flush=True)
+    # the views themselves are black where they look past the scene, so
+    # the crop shows in the shape (inside slice 1's), not in the share
+    if (pano2.dtype != np.uint8 or pano2.ndim != 3 or pano2.shape[2] != 3
+            or pano2.shape[0] >= pano.shape[0]
+            or pano2.shape[1] > pano.shape[1]
+            or pano2.shape[0] < 0.5 * pano.shape[0]
+            or pano2.shape[1] < 0.5 * pano.shape[1]):
+        raise AssertionError(f"slice2 panorama {pano2.dtype} {pano2.shape}: "
+                             f"not a cropped interior of {pano.shape}")
 
-    # every kernel against its plain version at the main path's inputs
-    if len(rec_nn.calls) != 1 or len(rec_bs.calls) != 2:
+    # its stages once more, each fenced; the named parts are timed inside
+    clock = StageClock()
+    parts = [(st2.camera_adjuster, "adjust", "bundle_adjust_s"),
+             (st2.wave_corrector, "correct", "wave_correct_s"),
+             (st2.cropper, "prepare_from_mask", "crop_plan_s"),
+             (engine, "_crop_tiles", "crop_tiles_s"),
+             (st2.compensator, "feed_stack", "exposure_feed_s"),
+             (engine, "apply_gains_stack", "gain_apply_s")]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in parts]
+    for o, a, label in parts:
+        setattr(o, a, clock.wrap(label, getattr(o, a)))
+    t0 = time.time()
+    reg2 = engine.register(st2, imgs)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    plan2 = engine.plan_composition(st2, reg2)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    pano2_again = engine.composite(st2, reg2, plan2)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    for o, a, fn in saved:
+        if o is engine:
+            setattr(o, a, fn)
+        else:
+            delattr(o, a)
+    print(f"slice2 stages (fenced): register_s={t1 - t0:.4f} "
+          f"plan_low_s={t2 - t1:.4f} composite_final_s={t3 - t2:.4f}; "
+          "inside them: "
+          + " ".join(f"{k}={v:.4f}" for k, v in clock.seconds.items()),
+          flush=True)
+    if not np.array_equal(pano2, pano2_again):
+        raise AssertionError("two runs of slice 2 gave different panoramas")
+    check_cameras("slice2", reg2.cameras, Rs_true, 0.02)
+    profile_stitch(st2, imgs)
+
+    # ---- path 3: one pair of frames ----------------------------------
+    images_obj = Images.of(imgs[:2], st.medium_megapix, st.low_megapix,
+                           st.final_megapix)
+    med_sizes = images_obj.get_scaled_img_sizes(Images.Resolution.MEDIUM)
+    gray, _ = engine._host_downscale(imgs[:2], med_sizes, med_sizes)
+    (H, n_inl), wall3, (_, rows_calls, _) = drive(
+        "pair", lambda: pipeline.register_pair(gray[0], gray[1],
+                                               nfeatures=500),
+        {"two_nn_pairs": 0, "two_nn": 2, "bilinear_sample": 0})
+    H = H.double().cpu().numpy()
+    mw, mh = med_sizes[0]
+    K = np.array([[FOCAL * ms, 0, mw / 2], [0, FOCAL * ms, mh / 2],
+                  [0, 0, 1.0]])
+    H_true = K @ Rs_true[1].T @ Rs_true[0] @ np.linalg.inv(K)
+    pts = np.array([[mw * fx, mh * fy, 1.0] for fx in (0.3, 0.6, 0.9)
+                    for fy in (0.2, 0.5, 0.8)]).T
+    got, want = H @ pts, H_true @ pts
+    h_err = float(np.abs(got[:2] / got[2] - want[:2] / want[2]).max())
+    print(f"pair: {int(n_inl)} inliers of {gray[0].shape} frames, "
+          f"homography within {h_err:.3f} px of the rendered one",
+          flush=True)
+    if int(n_inl) < 30 or not h_err < 3.0:
+        raise AssertionError("the pair path's homography is wrong")
+
+    # ---- path 4: the matchers on float descriptors -------------------
+    feats = float_features(8, 500, dev)
+    matcher = FeatureMatcher(match_conf=0.65)
+
+    def float_path():
+        ms_ = matcher.match_features(feats)
+        m = match.match_pair(feats[0].desc, torch.ones(500, dtype=torch.bool,
+                                                       device=dev),
+                             feats[1].desc, torch.ones(500, dtype=torch.bool,
+                                                       device=dev), 0.65,
+                             is_binary=False)
+        return ms_, m
+
+    (all_matches, one), wall4, (fnn_calls, frows_calls, _) = drive(
+        "float_match", float_path,
+        {"two_nn_pairs": 1, "two_nn": 2, "bilinear_sample": 0})
+    conf = FeatureMatcher.get_confidence_matrix(all_matches)
+    chain = [float(conf[k, k + 1]) for k in range(7)]
+    m01 = all_matches[1]
+    shift = m01.H[:2, 2] if m01.H is not None else None
+    n_one = int(one["valid"].sum())
+    print(f"float_match: neighbour confidences {np.round(chain, 3)}, H[0->1] "
+          f"shift {shift}, match_pair matches {n_one}", flush=True)
+    if (min(chain) < 1.0 or shift is None
+            or np.abs(shift - [-60, 5]).max() > 0.5 or n_one < 250):
+        raise AssertionError("the float matchers did not recover the "
+                             "synthetic shift")
+
+    pipeline.two_nn_pairs = rec_pairs.fn
+    match.two_nn = rec_rows.fn
+    compose.bilinear_sample = rec_bs.fn
+
+    # ---- small input: the card against the CPU, same cameras ---------
+    small, _ = rotation_set(3, (640, 480), 600.0, 0.5, dev)
+    for name, settings in (("slice1", SLICE), ("slice2", SLICE2)):
+        cpu = Stitcher(device="cpu", **settings)
+        cpu_reg = engine.register(cpu, small)
+        gpu_reg = engine.register(Stitcher(**settings), small)
+        f_cpu, f_gpu = cpu_reg.cameras[0].focal, gpu_reg.cameras[0].focal
+        pano_cpu, rects_cpu = composite_with(cpu, small, cpu_reg.cameras)
+        pano_gpu, rects_gpu = composite_with(Stitcher(**settings), small,
+                                             cpu_reg.cameras)
+        if pano_cpu.shape != pano_gpu.shape or rects_cpu != rects_gpu:
+            raise AssertionError(
+                f"small input, {name}: {pano_gpu.shape} {rects_gpu} on the "
+                f"card, {pano_cpu.shape} {rects_cpu} on the CPU")
+        near = float((np.abs(pano_gpu.astype(np.int16)
+                             - pano_cpu.astype(np.int16)) <= 1).mean())
+        print(f"small input, {name}: focal card {f_gpu:.3f} cpu {f_cpu:.3f}; "
+              f"panorama {pano_gpu.shape} crop rects {rects_gpu} within 1 "
+              f"LSB of the CPU's at {near:.6f} of values", flush=True)
+        if abs(f_gpu - f_cpu) > 0.02 * f_cpu or near < 0.999:
+            raise AssertionError(f"the card's {name} disagrees with the "
+                                 "CPU's")
+
+    # ---- every kernel against its plain version at the paths' inputs --
+    if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(bs_calls) != 2
+            or len(bs_calls2) != 2 or len(rows_calls) != 2
+            or len(fnn_calls) != 1 or len(frows_calls) != 2):
         raise AssertionError("kernel calls were not recorded")
-    results = {"two_nn_pairs": check_two_nn(rec_nn.calls[0]),
-               "bilinear_sample": check_sampler(rec_bs.calls)}
-    rows = [
-        dict(name="two_nn_pairs", route="cuda",
-             source="stitching_tpu_torch/csrc/two_nn.cu",
-             replaces="stitching_tpu/ops/pallas/two_nn.py:143",
-             launches=launches["two_nn_pairs"], status="ported",
-             **results["two_nn_pairs"]),
-        dict(name="bilinear_sample", route="cuda",
-             source="stitching_tpu_torch/csrc/bilinear_sample.cu",
-             replaces="stitching_tpu/ops/pallas/block_warp.py:212",
-             launches=launches["bilinear_sample"],
-             status="ported (also covers block_sample, block_warp.py:73)",
-             **results["bilinear_sample"]),
-    ]
-    print(f"total {time.time() - t_start:.1f} s", flush=True)
+    equal_two_nn_pairs(nn_calls[0], "two_nn_pairs (binary), slice1's call")
+    results = {
+        "two_nn_pairs (binary)": check_two_nn_pairs(
+            nn_calls2[0], "two_nn_pairs (binary)"),
+        "two_nn_pairs (float)": check_two_nn_pairs(
+            fnn_calls[0], "two_nn_pairs (float)"),
+        "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
+        "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
+        "bilinear_sample": check_sampler(bs_calls + bs_calls2),
+    }
+    paths = {"two_nn_pairs (binary)": ("two_nn_pairs", ("slice1", "slice2")),
+             "two_nn_pairs (float)": ("two_nn_pairs", ("float_match",)),
+             "two_nn (binary)": ("two_nn", ("pair",)),
+             "two_nn (float)": ("two_nn", ("float_match",)),
+             "bilinear_sample": ("bilinear_sample", ("slice1", "slice2"))}
+    meta = {
+        "two_nn_pairs (binary)": (
+            "stitching_tpu_torch/csrc/two_nn.cu",
+            "stitching_tpu/ops/pallas/two_nn.py:143"),
+        "two_nn_pairs (float)": (
+            "stitching_tpu_torch/csrc/two_nn_float.cu",
+            "stitching_tpu/ops/pallas/two_nn.py:143"),
+        "two_nn (binary)": (
+            "stitching_tpu_torch/csrc/two_nn.cu",
+            "stitching_tpu/ops/pallas/two_nn.py:66"),
+        "two_nn (float)": (
+            "stitching_tpu_torch/csrc/two_nn_float.cu",
+            "stitching_tpu/ops/pallas/two_nn.py:66"),
+        "bilinear_sample": (
+            "stitching_tpu_torch/csrc/bilinear_sample.cu",
+            "stitching_tpu/ops/pallas/block_warp.py:212 (and block_sample, "
+            "block_warp.py:73)"),
+    }
+    rows = []
+    for name, res in results.items():
+        wrapper, on = paths[name]
+        by_path = {p: launches[p][wrapper] for p in on}
+        if min(by_path.values()) < 1:
+            raise AssertionError(f"{name} was not launched on {by_path}")
+        rows.append(dict(name=name, route="cuda", source=meta[name][0],
+                         replaces=meta[name][1],
+                         launches=sum(by_path.values()),
+                         launches_by_path=by_path, status="ported", **res))
+    total = time.time() - t_start
+    print(f"total {total:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 """Wave correction component.
 
-Port of `stitching_tpu/camera_wave_corrector.py`'s settings surface: choices
-horiz (default) / vert / auto / no. This slice implements "no", which
-returns the cameras unchanged; the others raise `NotImplementedError`
-(ROADMAP queue 1: wave correction).
+Port of `stitching_tpu/camera_wave_corrector.py`: choices horiz (default) /
+vert / auto / no; operates on copies of the camera R matrices. The math
+lives in `ops/wave.py` (host numpy), the cv.detail.waveCorrect analog.
 """
 
 from collections import OrderedDict
 
+import numpy as np
+
 from .errors import StitchingError
+from .ops.wave import wave_correct
 
 
 class WaveCorrector:
@@ -21,11 +23,14 @@ class WaveCorrector:
         if wave_correct_kind not in self.WAVE_CORRECT_CHOICES:
             raise StitchingError(
                 "invalid wave correction kind: " + str(wave_correct_kind))
-        if wave_correct_kind != "no":
-            raise NotImplementedError(
-                f"wave_correct_kind={wave_correct_kind!r} is not ported yet "
-                "(ROADMAP queue 1: wave correction)")
         self.wave_correct_kind = self.WAVE_CORRECT_CHOICES[wave_correct_kind]
 
     def correct(self, cameras):
+        if self.wave_correct_kind is None:
+            return cameras
+        rmats = np.stack([np.copy(cam.R) for cam in cameras]).astype(
+            np.float32)
+        corrected = wave_correct(rmats, self.wave_correct_kind)
+        for idx, cam in enumerate(cameras):
+            cam.R = corrected[idx]
         return cameras

@@ -1,12 +1,15 @@
 """Batched compositing on the card: warp, seam-mask resize, paste blend.
 
-Port of the parts of `stitching_tpu/compose.py` that the slice runs. Every
+Port of the parts of `stitching_tpu/compose.py` that the slices run. Every
 stage is one batched pass over a stacked tile batch that stays in device
 memory:
 
 - `warp_stack`: all images warp onto the surface at once. The backward map
   (`_bwd_coords`) and the validity masks are batched tensor code; the
   bilinear gather is the CUDA kernel `ops/kernels/bilinear_sample`;
+- `slice_stack`: every tile crops to its rect in one pass;
+- `apply_gains_stack`: the blocks compensators' gain maps, bilinearly
+  upsampled per pixel and multiplied in;
 - `resize_seam_masks_stack`: dilate + resize + mask-AND for all seam masks;
 - `blend_stack` for blender kind "no": a paste composite, tile after tile,
   then one uint8 conversion. The panorama leaves the card once.
@@ -139,6 +142,126 @@ def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
         th=th, tw=tw, warper_type=warper_type)
     return TileStack(tiles, masks, np.asarray(corners[:n]),
                      np.asarray(dsizes[:n]))
+
+
+# ---------------------------------------------------------------------------
+# Batched crop
+# ---------------------------------------------------------------------------
+
+def slice_stack(stack: TileStack, rects) -> TileStack:
+    """Crop each tile to its (x, y, w, h) rect; corners/sizes updated by the
+    caller (crop ROI math lives in the cropper)."""
+    rects = [tuple(r) for r in rects]
+    n = len(rects)
+    b = stack.data.shape[0]
+    rects = rects + [(0, 0, 1, 1)] * (b - n)  # padded batch slots
+    ch = _round_up(max(r[3] for r in rects))
+    cw = _round_up(max(r[2] for r in rects))
+    th, tw = int(stack.data.shape[1]), int(stack.data.shape[2])
+    # Pad bottom/right so every (ch, cw) slice starts exactly at its rect
+    # origin: no clamping, so content never shifts against corners/sizes.
+    pad_h = max(0, max(r[1] for r in rects) + ch - th)
+    pad_w = max(0, max(r[0] for r in rects) + cw - tw)
+    tiles = F.pad(stack.data, (0, 0, 0, pad_w, 0, pad_h))
+    masks = F.pad(stack.masks, (0, pad_w, 0, pad_h))
+    tiles = torch.stack([tiles[i, r[1]:r[1] + ch, r[0]:r[0] + cw]
+                         for i, r in enumerate(rects)])
+    masks = torch.stack([masks[i, r[1]:r[1] + ch, r[0]:r[0] + cw]
+                         for i, r in enumerate(rects)])
+    sizes = np.asarray([(r[2], r[3]) for r in rects[:n]], np.int64)
+    return TileStack(tiles, masks, np.asarray(stack.corners), sizes)
+
+
+# ---------------------------------------------------------------------------
+# Batched exposure application
+# ---------------------------------------------------------------------------
+
+def _gain_map_kernel(tiles, gmaps, cell0, inv_bs):
+    """tiles: (B, TH, TW, C); gmaps: (B, GY, GX, Cg) padded cell gain maps;
+    cell0: (B, 2) float32, each image's sub-block offset (feed_corner % bs)
+    / bs in cells; inv_bs: (B, 2) float32 cells per APPLY-resolution pixel
+    (x, y). Bilinear-samples each image's gain map at every pixel and
+    multiplies: apply pixel a maps to feed pixel center (a+0.5)*feed/apply,
+    then to cell coordinate (off + (a+0.5)*ratio)/bs - 0.5 relative to the
+    sub-map origin. The sample grid is separable (gx depends on the column
+    only, gy on the row only)."""
+    B, TH, TW = tiles.shape[0], tiles.shape[1], tiles.shape[2]
+    GY, GX = gmaps.shape[1], gmaps.shape[2]
+    dev = tiles.device
+    gx = cell0[:, 0:1] + (torch.arange(TW, dtype=torch.float32, device=dev)
+                          + 0.5)[None] * inv_bs[:, 0:1] - 0.5    # (B, TW)
+    gy = cell0[:, 1:2] + (torch.arange(TH, dtype=torch.float32, device=dev)
+                          + 0.5)[None] * inv_bs[:, 1:2] - 0.5    # (B, TH)
+    gx = gx.clamp(0.0, GX - 1.0)
+    gy = gy.clamp(0.0, GY - 1.0)
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    fx = (gx - x0)[:, None, :, None]                # (B, 1, TW, 1)
+    fy = (gy - y0)[:, :, None, None]                # (B, TH, 1, 1)
+    x0i = x0.long().clamp(0, GX - 1)
+    x1i = (x0i + 1).clamp(0, GX - 1)
+    y0i = y0.long().clamp(0, GY - 1)
+    y1i = (y0i + 1).clamp(0, GY - 1)
+    bi = torch.arange(B, device=dev)[:, None, None]
+
+    def tap(yy, xx):
+        return gmaps[bi, yy[:, :, None], xx[:, None, :]]    # (B,TH,TW,Cg)
+
+    r0 = tap(y0i, x0i) * (1 - fx) + tap(y0i, x1i) * fx
+    r1 = tap(y1i, x0i) * (1 - fx) + tap(y1i, x1i) * fx
+    gain = r0 * (1 - fy) + r1 * fy
+    return torch.round(tiles * gain).clamp(0.0, 255.0)
+
+
+def plan_gain_arrays(compensator, sizes, b):
+    """Host arrays for gain application over `b` batch slots whose first
+    len(sizes) are real images at the given APPLY-resolution sizes.
+
+    Returns None for compensator "no", else (gstack, cell0, inv_bs) for
+    the blocks variants.
+    """
+    if compensator.compensator == "no":
+        return None
+    n = len(sizes)
+    origin, bs, smoothed = compensator._block_state
+    subs = []
+    cell0 = np.zeros((b, 2), np.float32)
+    inv_bs = np.full((b, 2), 1.0 / bs, np.float32)
+    for i in range(n):
+        gmap = smoothed[i]
+        fw, fh = compensator._feed_sizes[i]
+        gx0 = compensator._feed_corners[i][0] - origin[0]
+        gy0 = compensator._feed_corners[i][1] - origin[1]
+        cy0, cx0 = gy0 // bs, gx0 // bs
+        ncy = -(-(gy0 % bs + fh) // bs)
+        ncx = -(-(gx0 % bs + fw) // bs)
+        subs.append(gmap[cy0:cy0 + ncy, cx0:cx0 + ncx])
+        # sub-block offset of the image's (0,0) pixel inside cell (cy0, cx0)
+        cell0[i] = ((gx0 % bs) / bs, (gy0 % bs) / bs)
+        # cells per APPLY pixel, per image and axis (feed px / apply px / bs)
+        aw, ah = sizes[i]
+        inv_bs[i] = (fw / max(int(aw), 1) / bs, fh / max(int(ah), 1) / bs)
+    gy = max(s.shape[0] for s in subs)
+    gx = max(s.shape[1] for s in subs)
+    cg = subs[0].shape[-1]
+    gstack = np.ones((b, gy, gx, cg), np.float32)
+    for i, s in enumerate(subs):
+        gstack[i, :s.shape[0], :s.shape[1]] = s
+        # edge-replicate so the bilinear taps at image edges stay sane
+        gstack[i, s.shape[0]:, :s.shape[1]] = s[-1:, :]
+        gstack[i, :, s.shape[1]:] = gstack[i, :, s.shape[1] - 1:s.shape[1]]
+    return gstack, cell0, inv_bs
+
+
+def apply_gains_stack(stack: TileStack, compensator) -> TileStack:
+    """Apply the fed compensator to the whole tile stack on its device."""
+    arrs = plan_gain_arrays(compensator, stack.sizes, stack.data.shape[0])
+    if arrs is None:
+        return stack
+    dev = stack.data.device
+    tiles = _gain_map_kernel(
+        stack.data, *[torch.as_tensor(a, device=dev) for a in arrs])
+    return TileStack(tiles, stack.masks, stack.corners, stack.sizes)
 
 
 # ---------------------------------------------------------------------------

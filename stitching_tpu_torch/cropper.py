@@ -1,18 +1,154 @@
-"""Auto-crop component.
+"""Auto-crop: remove the invalid border the warp creates.
 
-Port of `stitching_tpu/cropper.py`'s settings surface: `crop` True
-(default) / False. This slice implements crop=False, under which nothing
-is cropped; crop=True raises `NotImplementedError` (ROADMAP queue 1: crop
-and LIR).
+Port of `stitching_tpu/cropper.py`: require exactly one simply-connected
+foreground region in the panorama mask (else the "Invalid Contour" error
+with the --no-crop hint), find the largest interior rectangle
+(`ops/lir.py`), zero-center the corners, clip every image's warped rect
+against the LIR ("Rectangles do not overlap!" on disjoint rects), and give
+the per-image crops at a resolution aspect.
+
+Rect algebra lives in module functions over a minimal `Rectangle` value
+type, on the host. The engine calls `prepare_from_mask` with the panorama
+mask it composited on the device and applies the rects with
+`compose.slice_stack`. The reference's host-list planning (`prepare`,
+`crop_images`), its static aliases and `Rectangle.draw_on` are not ported
+(ROADMAP queue 1: host extras).
 """
 
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from .errors import StitchingError
+from .ops.lir import largest_interior_rectangle
+
+_INVALID_CONTOUR = (
+    "Invalid Contour. Run with --no-crop (using the stitch interface), "
+    "crop=false (using the stitcher class) or Cropper(False) "
+    "(using the cropper class)"
+)
+
+
+class Rectangle(namedtuple("Rectangle", "x y width height")):
+    __slots__ = ()
+
+    @property
+    def area(self):
+        return self.width * self.height
+
+    @property
+    def corner(self):
+        return (self.x, self.y)
+
+    @property
+    def size(self):
+        return (self.width, self.height)
+
+    @property
+    def x2(self):
+        return self.x + self.width
+
+    @property
+    def y2(self):
+        return self.y + self.height
+
+    def times(self, x):
+        return Rectangle(*(int(round(i * x)) for i in self))
+
+
+# ---------------------------------------------------------------------------
+# Rect algebra
+# ---------------------------------------------------------------------------
+
+def clip_rect(rect, bound):
+    """rect ∩ bound in shared coords; error when they don't meet."""
+    x1 = max(rect.x, bound.x)
+    y1 = max(rect.y, bound.y)
+    x2 = min(rect.x2, bound.x2)
+    y2 = min(rect.y2, bound.y2)
+    if x2 < x1 or y2 < y1:
+        raise StitchingError("Rectangles do not overlap!")
+    return Rectangle(x1, y1, x2 - x1, y2 - y1)
+
+
+def to_local(rect, outer):
+    """Express `rect` (global coords) relative to its image's rect."""
+    return Rectangle(abs(rect.x - outer.x), abs(rect.y - outer.y),
+                     rect.width, rect.height)
+
+
+def zero_center(corners):
+    ox = min(c[0] for c in corners)
+    oy = min(c[1] for c in corners)
+    return [(x - ox, y - oy) for x, y in corners]
+
+
+def single_region(mask):
+    """The flood-filled foreground region iff the mask is one
+    simply-connected blob; None otherwise (the reference asserts exactly
+    one outer contour, cropper.py:95-99)."""
+    m = np.asarray(mask) > 0
+    if not m.any():
+        return None
+    region = np.zeros_like(m)
+    seed = np.argwhere(m)[0]
+    region[seed[0], seed[1]] = True
+    count = 0
+    while True:
+        grown = region.copy()
+        grown[1:, :] |= region[:-1, :]
+        grown[:-1, :] |= region[1:, :]
+        grown[:, 1:] |= region[:, :-1]
+        grown[:, :-1] |= region[:, 1:]
+        region = grown & m
+        c = int(region.sum())
+        if c == count:
+            break
+        count = c
+    return region if bool((region == m).all()) else None
+
+
+# ---------------------------------------------------------------------------
+# Component
+# ---------------------------------------------------------------------------
 
 class Cropper:
     DEFAULT_CROP = True
 
     def __init__(self, crop=DEFAULT_CROP):
-        if crop:
-            raise NotImplementedError(
-                "crop=True is not ported yet (ROADMAP queue 1: crop and LIR)")
-        self.do_crop = False
-        self.intersection_rectangles = None
+        self.do_crop = crop
+        self.overlapping_rectangles = []
+        self.intersection_rectangles = []
+
+    # -- planning ------------------------------------------------------------
+
+    def prepare_from_mask(self, mask, corners, sizes):
+        """Plan crop rects from the composited panorama mask (a tensor on
+        any device, or a host array)."""
+        if not self.do_crop:
+            return
+        self.lir = self.estimate_largest_interior_rectangle(mask)
+        corners = zero_center(corners)
+        img_rects = [Rectangle(*c, *s) for c, s in zip(corners, sizes)]
+        self.overlapping_rectangles = [
+            clip_rect(r, self.lir) for r in img_rects]
+        self.intersection_rectangles = [
+            to_local(clipped, outer) for clipped, outer in
+            zip(self.overlapping_rectangles, img_rects)]
+
+    def estimate_largest_interior_rectangle(self, mask):
+        mask = torch.as_tensor(mask)
+        if single_region(mask.cpu().numpy()) is None:
+            raise StitchingError(_INVALID_CONTOUR)
+        x, y, w, h = largest_interior_rectangle(mask > 0).tolist()
+        return Rectangle(int(x), int(y), int(w), int(h))
+
+    # -- application ---------------------------------------------------------
+
+    def crop_rois(self, corners, sizes, aspect=1):
+        if not self.do_crop:
+            return corners, sizes
+        scaled = [r.times(aspect) for r in self.overlapping_rectangles]
+        return (zero_center([r.corner for r in scaled]),
+                [r.size for r in scaled])

@@ -1,6 +1,6 @@
 """The batched stitching engine: registration, planning and compositing.
 
-Port of `stitching_tpu/engine.py` for the slice: the `Stitcher` facade
+Port of `stitching_tpu/engine.py` for the ported slices: the `Stitcher` facade
 drives `run`, which is register -> plan_composition -> composite, each a
 function over explicit dataclasses (`Registration`, `CompositionPlan`) and
 stacks that stay on the card.
@@ -25,8 +25,8 @@ import dataclasses
 
 import numpy as np
 
-from .compose import (TileStack, blend_stack, fetch_image,
-                      resize_seam_masks_stack, warp_stack)
+from .compose import (TileStack, apply_gains_stack, blend_stack, fetch_image,
+                      resize_seam_masks_stack, slice_stack, warp_stack)
 from .errors import StitchingError
 from .images import Images
 from .ops.resize import resize as _host_resize
@@ -211,14 +211,33 @@ def warp_resolution(st, reg: Registration, resolution) -> TileStack:
                       st.warper.warper_type)
 
 
+def _crop_tiles(ts: TileStack, cropper, aspect) -> TileStack:
+    """Apply the prepared cropper's per-image rects at `aspect` scale."""
+    rects = [r.times(aspect) for r in cropper.intersection_rectangles]
+    corners, sizes = cropper.crop_rois(
+        [tuple(c) for c in ts.corners],
+        [tuple(s) for s in ts.sizes], aspect)
+    out = slice_stack(ts, [tuple(r) for r in rects])
+    return dataclasses.replace(out, corners=np.asarray(corners),
+                               sizes=np.asarray(sizes, np.int64))
+
+
 def plan_composition(st, reg: Registration) -> CompositionPlan:
-    """The LOW pass: warp, exposure feed and seam search."""
+    """The LOW pass: warp, crop planning, exposure feed and seam search."""
     low = warp_resolution(st, reg, Resolution.LOW)
+    if st.cropper.do_crop:
+        _, pano_mask = blend_stack(low, None, "no", 0)
+        st.cropper.prepare_from_mask(
+            pano_mask, [tuple(c) for c in low.corners],
+            [tuple(s) for s in low.sizes])
+        low = _crop_tiles(low, st.cropper, 1)
     lir_aspect = reg.images.get_ratio(Resolution.LOW, Resolution.FINAL)
     st.compensator.feed_stack([tuple(c) for c in low.corners], low)
     seam_masks = st.seam_finder.find_stack(low)
-    return CompositionPlan((seam_masks, np.asarray(low.sizes)), None,
-                           lir_aspect)
+    return CompositionPlan(
+        (seam_masks, np.asarray(low.sizes)),
+        st.cropper.intersection_rectangles if st.cropper.do_crop else None,
+        lir_aspect)
 
 
 def composite(st, reg: Registration, plan: CompositionPlan):
@@ -227,7 +246,10 @@ def composite(st, reg: Registration, plan: CompositionPlan):
     # the originals have no further consumers: free them before the blend
     reg.stack = None
     reg.low_stack = None
-    fin = st.compensator.apply_stack(fin)
+    if plan.crop_rects is not None:
+        fin = _crop_tiles(fin, st.cropper, plan.lir_aspect)
+    # gains apply before the seam masks are resized against the tiles
+    fin = apply_gains_stack(fin, st.compensator)
     seams = resize_seam_masks_stack(plan.seam_masks_low, fin)
     pano, _ = blend_stack(fin, seams, st.blender.blender_type,
                           st.blender.blend_strength)

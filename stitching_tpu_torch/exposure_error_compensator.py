@@ -1,15 +1,21 @@
 """Exposure error compensation component.
 
-Port of `stitching_tpu/exposure_error_compensator.py`'s settings surface:
-choices gain_blocks (default) / gain / channel / channel_blocks / no, with
-`nr_feeds` and `block_size`. This slice implements "no", which leaves the
-tiles unchanged; the others raise `NotImplementedError` (ROADMAP queue 1:
-exposure).
+Port of `stitching_tpu/exposure_error_compensator.py`: choices gain_blocks
+(default) / gain / channel / channel_blocks / no, with `nr_feeds` and
+`block_size`. `feed_stack` estimates on the LOW-resolution tile stack;
+`compose.apply_gains_stack` compensates the FINAL-resolution one from the
+state it leaves. The blocks variants (gain_blocks, channel_blocks) share
+one code path with a `per_channel` flag (`ops/exposure.py`); the scalar
+`gain` / `channel` compensators raise `NotImplementedError` (ROADMAP queue
+1: other settings).
 """
 
 from collections import OrderedDict
 
+import numpy as np
+
 from .errors import StitchingError
+from .ops.exposure import compute_block_gains_stack, smooth_gain_map
 
 
 class ExposureErrorCompensator:
@@ -30,16 +36,29 @@ class ExposureErrorCompensator:
         if compensator not in self.COMPENSATOR_CHOICES:
             raise StitchingError(
                 "invalid compensator: " + str(compensator))
-        if compensator != "no":
+        if compensator in ("gain", "channel"):
             raise NotImplementedError(
                 f"compensator={compensator!r} is not ported yet (ROADMAP "
-                "queue 1: exposure)")
+                "queue 1: other settings)")
         self.compensator = compensator
         self.nr_feeds = nr_feeds
         self.block_size = block_size
+        self._block_state = None
 
     def feed_stack(self, corners, stack):
-        return
-
-    def apply_stack(self, stack):
-        return stack
+        """Estimate the gain maps from a `compose.TileStack`: the masked
+        block sums run on the stack's device, only the tiny normal systems
+        come to the host."""
+        if self.compensator == "no":
+            return
+        per_channel = self.compensator == "channel_blocks"
+        sizes = np.asarray(stack.sizes)
+        n = len(sizes)
+        origin, bs, gains, present = compute_block_gains_stack(
+            stack.data, stack.masks, corners[:n], sizes, self.block_size,
+            per_channel)
+        smoothed = [smooth_gain_map(gains[i], present[i]) for i in range(n)]
+        self._block_state = (origin, bs, smoothed)
+        # LOW-resolution corners and sizes map FINAL applies by ratio
+        self._feed_corners = list(corners[:n])
+        self._feed_sizes = [tuple(s) for s in sizes]

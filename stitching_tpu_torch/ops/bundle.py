@@ -1,0 +1,172 @@
+"""Bundle adjustment: Levenberg-Marquardt over camera parameters.
+
+Port of `stitching_tpu/ops/bundle.py` without the mesh: residuals are
+functions over a fixed-capacity (edges x matches) problem tensor and the
+Jacobian comes from `torch.func.jacfwd`, exact derivatives, batched on the
+device.
+
+Residual models:
+- ray: residual = sqrt(f_i f_j) * (unit(R_i K_i^-1 p) - unit(R_j K_j^-1 q)),
+  3 components per inlier match;
+- reproj: residual = proj(K_j R_j^-1 R_i K_i^-1 p) - q, 2 components.
+The affine model is not ported yet.
+
+Parameter layout per camera: (focal, ppx, ppy, aspect, rvec[3]). The
+refinement mask gates which intrinsics vary; rotations always vary.
+
+The LM loop is data-dependent: each trial step's accept/reject decision is
+read on the host (one flag per step, so one device sync per step), and the
+Jacobian is evaluated again only after an accepted step. All arithmetic is
+float32, as in the reference; last-bit differences can flip an
+accept/reject, so the result, not the trajectory, is what agrees with the
+reference.
+"""
+
+import numpy as np
+import torch
+
+from .rotation import rodrigues_to_matrix
+
+MAX_LM_ITERS = 100  # total trial steps (accepts + rejects)
+
+
+def _K_from_params(p):
+    """p: (..., 7) -> K (..., 3, 3)."""
+    f, ppx, ppy, aspect = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    z = torch.zeros_like(f)
+    o = torch.ones_like(f)
+    return torch.stack([
+        torch.stack([f, z, ppx], -1),
+        torch.stack([z, f * aspect, ppy], -1),
+        torch.stack([z, z, o], -1),
+    ], -2)
+
+
+def _rays(params_cam, pts):
+    """Unit rays R K^-1 p for pts (E, M, 2) under per-edge cams (E, 7)."""
+    f = params_cam[..., 0:1]
+    ppx = params_cam[..., 1:2]
+    ppy = params_cam[..., 2:3]
+    aspect = params_cam[..., 3:4]
+    R = rodrigues_to_matrix(params_cam[..., 4:7])        # (E, 3, 3)
+    x = (pts[..., 0] - ppx) / f
+    y = (pts[..., 1] - ppy) / (f * aspect)
+    z = torch.ones_like(x)
+    v = torch.stack([x, y, z], -1)                       # (E, M, 3)
+    v = torch.einsum("eij,emj->emi", R, v)
+    norm = torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+    return v / norm.clamp_min(1e-12)
+
+
+def _residual(x, params0, src_idx, dst_idx, pts_src, pts_dst, w, variant,
+              active_idx):
+    """Flat residual vector for parameter update x (n_cam * n_active,).
+
+    `active_idx` is the tuple of active per-camera parameter positions;
+    the other positions keep their `params0` values. The active values
+    enter through a constant one-hot scatter matrix, an out-of-place write
+    that `torch.func` differentiates."""
+    sw = torch.sqrt(w)
+    n_cam, n_par = params0.shape
+    xm = x.reshape(n_cam, len(active_idx))
+    scatter = torch.eye(n_par, dtype=x.dtype,
+                        device=x.device)[list(active_idx)]
+    p = params0 * (1.0 - scatter.sum(0)) + xm @ scatter
+
+    pc_i, pc_j = p[src_idx], p[dst_idx]
+    if variant == "ray":
+        ri = _rays(pc_i, pts_src)
+        rj = _rays(pc_j, pts_dst)
+        mult = torch.sqrt(pc_i[..., 0] * pc_j[..., 0])[:, None, None]
+        return ((ri - rj) * mult * sw[..., None]).reshape(-1)
+    if variant == "reproj":
+        Ki = _K_from_params(pc_i)
+        Kj = _K_from_params(pc_j)
+        Ri = rodrigues_to_matrix(pc_i[..., 4:7])
+        Rj = rodrigues_to_matrix(pc_j[..., 4:7])
+        H = Kj @ Rj.transpose(-1, -2) @ Ri @ torch.linalg.inv(Ki)
+        ph = torch.cat([pts_src, torch.ones_like(pts_src[..., :1])], -1)
+        q = torch.einsum("eij,emj->emi", H, ph)
+        z = q[..., 2:]
+        z = torch.where(z.abs() < 1e-12, 1e-12, z)
+        return (((q[..., :2] / z) - pts_dst) * sw[..., None]).reshape(-1)
+    if variant == "affine":
+        raise NotImplementedError(
+            "the affine bundle model is not ported yet (ROADMAP queue 1: "
+            "other settings)")
+    raise ValueError("unknown BA variant: " + variant)
+
+
+def _lm_engine(x0, residual, max_iters):
+    """The LM loop. Classic trust-region damping: one trial step per
+    iteration; on accept the Jacobian refreshes and lambda shrinks, on
+    reject lambda grows. Terminates on relative-improvement convergence or
+    8 consecutive rejects. The damped normal system solves in float32 with
+    Jacobi preconditioning (scales focal-like and radian-like parameters
+    comparably)."""
+    jac = torch.func.jacfwd(residual)
+    x, r, J = x0, residual(x0), jac(x0)
+    cost = (r * r).sum()
+    lam = 1e-3
+    rejects = 0
+    for _ in range(max_iters):
+        A = J.T @ J
+        g = J.T @ r
+        D = torch.diagonal(A).clamp_min(1e-12)
+        dsqrt = torch.sqrt(D)
+        M = (A + lam * torch.diag(D)) / dsqrt[:, None] / dsqrt[None, :]
+        delta = -torch.linalg.solve(M, g / dsqrt) / dsqrt
+        x_new = x + delta
+        r_new = residual(x_new)
+        cost_new = (r_new * r_new).sum()
+        rel = (cost - cost_new) / cost.clamp_min(1e-30)
+        # the one host read of the step: accept, and converged if accepted
+        accept, converged = torch.stack([
+            torch.isfinite(cost_new) & (cost_new < cost),
+            rel < 1e-8]).tolist()
+        if accept:
+            x, r, cost = x_new, r_new, cost_new
+            J = jac(x)
+            lam = max(lam / 10, 1e-12)
+            rejects = 0
+            if converged:
+                break
+        else:
+            lam = lam * 10
+            rejects += 1
+            if rejects >= 8:
+                break
+    return x, cost
+
+
+def solve_bundle(problem, variant, param_mask, params0,
+                 max_iters=MAX_LM_ITERS, device="cuda"):
+    """Adjust cameras: returns (params (N, P) numpy array, cost).
+
+    problem: dict with src_idx (E,), dst_idx (E,), pts_src/pts_dst (E, M, 2),
+    w (E, M) in {0,1}. param_mask: (P,) bool over per-camera parameters;
+    frozen entries keep their params0 values. The loop runs on `device`
+    (the card by default).
+    """
+    params0 = np.asarray(params0, np.float32)
+    active_idx = tuple(int(i) for i in np.where(np.asarray(param_mask))[0])
+    x0 = params0[:, list(active_idx)].reshape(-1)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    p0 = dev(params0, torch.float32)
+    src_idx = dev(problem["src_idx"], torch.long)
+    dst_idx = dev(problem["dst_idx"], torch.long)
+    pts_src = dev(problem["pts_src"], torch.float32)
+    pts_dst = dev(problem["pts_dst"], torch.float32)
+    w = dev(problem["w"], torch.float32)
+
+    def residual(x):
+        return _residual(x, p0, src_idx, dst_idx, pts_src, pts_dst, w,
+                         variant, active_idx)
+
+    x, cost = _lm_engine(dev(x0, torch.float32), residual, int(max_iters))
+    full = params0.copy()
+    full[:, list(active_idx)] = x.cpu().numpy().reshape(params0.shape[0], -1)
+    return full, float(cost)

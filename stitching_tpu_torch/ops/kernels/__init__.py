@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels: build at first use, bind with ctypes.
 
 Each kernel is CUDA C++ in `stitching_tpu_torch/csrc/` with a plain C
-interface. `load(name)` compiles `csrc/<name>.cu` with nvcc for sm_90a into
+interface; one source may hold several C entries. `load(entry)` compiles
+the entry's source `csrc/<name>.cu` with nvcc for sm_90a into
 `build/stitching_tpu_torch/` at the repository root (a cache keyed by a hash
-of the source and the flags), loads it with ctypes and returns its C entry
+of the source and the flags), loads it with ctypes and returns the C entry
 with the argument types of `ENTRIES` set. Nothing compiles at
 import time: the CPU tests import every module, and there a wrapper runs its
 kernel's plain PyTorch version because the tensor it was given lies on the
@@ -24,15 +25,19 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "stitching_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel -> (C entry, argument types); every entry takes the stream last and
+# C entry -> (source, argument types); every entry takes the stream last and
 # returns a cudaError_t
 ENTRIES = {
-    "two_nn": ("two_nn_pairs_binary", [_P] * 7 + [_I] * 5 + [_P]),
+    "two_nn_pairs_binary": ("two_nn", [_P] * 7 + [_I] * 5 + [_P]),
+    "two_nn_binary": ("two_nn", [_P] * 8 + [_I] * 4 + [_P]),
+    "two_nn_pairs_float": ("two_nn_float", [_P] * 8 + [_I] * 5 + [_P]),
+    "two_nn_float": ("two_nn_float", [_P] * 8 + [_I] * 4 + [_P]),
     "bilinear_sample": ("bilinear_sample", [_P] * 4 + [_I] * 6 + [_P]),
 }
-KERNELS = tuple(ENTRIES)
+KERNELS = tuple(dict.fromkeys(src for src, _ in ENTRIES.values()))
 
-_libs = {}
+_libs = {}       # source -> loaded library
+_entries = {}    # C entry -> ctypes function
 _lock = threading.Lock()
 
 
@@ -84,23 +89,26 @@ def build(names=KERNELS):
     return [library_path(n) for n in names]
 
 
-def load(name):
-    """The C entry of kernel `name` (a ctypes function), built on first
-    use."""
-    fn = _libs.get(name)
+def load(entry):
+    """The C entry `entry` (a ctypes function); its source is built on
+    first use."""
+    fn = _entries.get(entry)
     if fn is not None:
         return fn
     with _lock:
-        fn = _libs.get(name)
+        fn = _entries.get(entry)
         if fn is None:
-            path = library_path(name)
-            if not os.path.exists(path):
-                build((name,))
-            symbol, argtypes = ENTRIES[name]
-            fn = getattr(ctypes.CDLL(path), symbol)
+            name, argtypes = ENTRIES[entry]
+            lib = _libs.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not os.path.exists(path):
+                    build((name,))
+                lib = _libs[name] = ctypes.CDLL(path)
+            fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
+            _entries[entry] = fn
         return fn
 
 

@@ -1,11 +1,16 @@
-"""Ratio test + cross-check union of both directions' 2-NN results.
+"""Pairwise descriptor matching: 2-NN + ratio test, both directions.
 
-Port of `stitching_tpu/ops/match.py::ratio_union`, over a batch of pairs:
-the 2-NN itself is the CUDA kernel `kernels/two_nn.py::two_nn_pairs`.
+Port of `stitching_tpu/ops/match.py`: `ratio_union` over a batch of pairs
+(the batched matcher's 2-NN is the CUDA kernel
+`kernels/two_nn.py::two_nn_pairs`), and `match_pair`, the matcher of one
+pair of descriptor sets, whose 2-NN per direction is the CUDA kernel
+`kernels/two_nn.py::two_nn`.
 """
 
 import numpy as np
 import torch
+
+from .kernels.two_nn import two_nn
 
 
 def ratio_union(d0f, d1f, fwd_j, d0b, d1b, bwd_i, valid_a, valid_b,
@@ -37,3 +42,24 @@ def ratio_union(d0f, d1f, fwd_j, d0b, d1b, bwd_i, valid_a, valid_b,
     pairs = torch.cat([fwd_pairs, bwd_pairs], dim=-2)
     valid = torch.cat([fwd_ok, bwd_keep], dim=-1)
     return pairs, valid
+
+
+def match_pair(desc_a, valid_a, desc_b, valid_b, match_conf, *,
+               is_binary=True):
+    """2-NN cross-check-union matching between two descriptor sets.
+
+    desc_a: (Na, D) float32 (binary descriptors are {0,1}-unpacked);
+    valid_a: (Na,) bool; desc_b, valid_b: the other image's. A match is
+    accepted if d0 < (1 - match_conf) * d1, with L2 (not squared)
+    distances for float descriptors. Returns dict(pairs (Na+Nb, 2) int32
+    of (idx_a, idx_b), valid (Na+Nb,) bool).
+    """
+    d0f, d1f, fwd_j = two_nn(desc_a, desc_b, valid_b, is_binary=is_binary)
+    d0b, d1b, bwd_i = two_nn(desc_b, desc_a, valid_a, is_binary=is_binary)
+    nn = [d0f, d1f, fwd_j, d0b, d1b, bwd_i]
+    if not is_binary:
+        for k in (0, 1, 3, 4):
+            nn[k] = torch.sqrt(nn[k])
+    pairs, valid = ratio_union(*[v[None] for v in nn], valid_a[None],
+                               valid_b[None], float(match_conf))
+    return dict(pairs=pairs[0].to(torch.int32), valid=valid[0])

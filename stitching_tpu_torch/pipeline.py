@@ -9,7 +9,9 @@ living in device memory:
 - detection runs once over the whole batch (`ops/orb.detect_orb`);
 - matching + RANSAC runs the whole C(B,2) pair axis at once: the 2-NN is
   the CUDA kernel `ops/kernels/two_nn.two_nn_pairs`, ratio/union and
-  RANSAC are batched over pairs.
+  RANSAC are batched over pairs;
+- `register_pair` registers ONE pair of frames (detect, `match_pair`,
+  RANSAC): the per-pair unit the match graph is built from.
 
 Stacks pad to multiples of 64; true per-image sizes ride along as host
 metadata.
@@ -23,7 +25,7 @@ import torch
 from .ops.color import bgr_to_gray
 from .ops.fma import fma
 from .ops.kernels.two_nn import two_nn_pairs
-from .ops.match import ratio_union
+from .ops.match import match_pair, ratio_union
 from .ops.orb import detect_orb
 from .ops.ransac import ransac_homography
 
@@ -267,3 +269,36 @@ def match_stack(feats, img_sizes, **kwargs):
     if chunks is None:
         return pair_ij, None
     return pair_ij, match_stack_fetch(chunks)
+
+
+# ---------------------------------------------------------------------------
+# One pair of frames
+# ---------------------------------------------------------------------------
+
+def register_pair(img_a, img_b, *, nfeatures=256, device="cuda"):
+    """Register two frames: ORB detection, `match_pair` (the per-pair 2-NN
+    kernel in both directions, ratio confidence 0.3) and the RANSAC
+    homography (seed 0), in uncentered pixel coordinates. Counterpart of
+    the reference's per-pair entry (detect_orb -> match_pair ->
+    ransac_homography).
+
+    img_a, img_b: (H, W) gray or (H, W, 3) BGR arrays in [0, 255]. Returns
+    (H (3, 3) float32 tensor mapping a's pixels to b's, num_inliers int
+    tensor), both on `device`.
+    """
+    feats = []
+    for img in (img_a, img_b):
+        plane = torch.as_tensor(np.array(img, np.float32), device=device)
+        if plane.dim() == 3:
+            plane = bgr_to_gray(plane)
+        feats.append({k: v[0] for k, v in detect_orb(
+            plane[None], nfeatures=nfeatures).items()})
+    fa, fb = feats
+    m = match_pair(fa["desc"], fa["valid"], fb["desc"], fb["valid"],
+                   0.3, is_binary=True)
+    pairs = m["pairs"].long()
+    src = fa["xy"][pairs[:, 0]]
+    dst = fb["xy"][pairs[:, 1]]
+    seeds = torch.zeros(1, dtype=torch.int64, device=src.device)
+    r = ransac_homography(src[None], dst[None], m["valid"][None], seeds)
+    return r["H"][0], r["num_inliers"][0]

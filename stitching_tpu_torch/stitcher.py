@@ -8,7 +8,7 @@ resolution semantics. `device=` takes the place of the JAX package's
 
 Settings the port does not implement yet raise `NotImplementedError` from
 the component that owns them, naming the setting and the ROADMAP item that
-ports it. `SLICE` is the configuration that runs today.
+ports it. `SLICE` and `SLICE2` are the configurations that run today.
 """
 
 import torch
@@ -33,6 +33,10 @@ from .warper import Warper
 # no --compensator no --finder no --blender_type no` with crop disabled.
 SLICE = dict(crop=False, adjuster="no", wave_correct_kind="no",
              compensator="no", finder="no", blender_type="no")
+# The second slice: every default (ray bundle adjustment, horizontal wave
+# correction, the LIR crop, gain_blocks exposure) except the seam finder and
+# the blender, which are not ported yet.
+SLICE2 = dict(finder="no", blender_type="no")
 
 
 class Stitcher:
@@ -94,7 +98,8 @@ class Stitcher:
             s["confidence_threshold"], s["matches_graph_dot_file"])
         self.camera_estimator = CameraEstimator(s["estimator"])
         self.camera_adjuster = CameraAdjuster(
-            s["adjuster"], s["refinement_mask"], s["confidence_threshold"])
+            s["adjuster"], s["refinement_mask"], s["confidence_threshold"],
+            device=self.device)
         self.wave_corrector = WaveCorrector(s["wave_correct_kind"])
         self.warper = Warper(s["warper_type"])
         self.cropper = Cropper(s["crop"])

@@ -16,6 +16,10 @@ from stitching_tpu import pipeline as jp
 from stitching_tpu_torch import compose as tc
 from stitching_tpu_torch import pipeline as tp
 
+# The suite's workers run side by side on a few cores: keep each one's
+# intra-op pool small, or the pools spin against each other.
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def low_case():

@@ -16,8 +16,9 @@ import torch
 
 from stitching_tpu_torch.ops.kernels.bilinear_sample import (
     bilinear_sample, bilinear_sample_plain)
-from stitching_tpu_torch.ops.kernels.two_nn import (two_nn_pairs,
-                                                    two_nn_pairs_plain)
+from stitching_tpu_torch.ops.kernels.two_nn import (two_nn, two_nn_pairs,
+                                                    two_nn_pairs_plain,
+                                                    two_nn_plain)
 
 
 @pytest.fixture
@@ -43,6 +44,67 @@ def _descriptors(case, seed=0):
     pairs = np.asarray([(i, j) for i in range(B) for j in range(i + 1, B)],
                        np.int32)
     return desc, valid, pairs
+
+
+def _float_descriptors(case, seed=0):
+    """(desc (B, N, 128) f32, valid (B, N), pairs (P, 2) int32): SIFT-like
+    rows; image b + 1 holds noisy copies of image b's rows, so true
+    matches exist."""
+    rng = np.random.RandomState(seed)
+    B, N = 4, 61
+    desc = np.abs(rng.randn(B, N, 128)).astype(np.float32)
+    for b in range(1, B):
+        desc[b, :40] = desc[b - 1, rng.permutation(N)[:40]] \
+            + 0.05 * rng.randn(40, 128).astype(np.float32)
+    desc *= 512.0 / np.linalg.norm(desc, axis=-1, keepdims=True)
+    valid = rng.rand(B, N) > 0.1
+    if case == "all_invalid":
+        valid[2] = False
+    if case == "ties":
+        desc[1, 10:20] = desc[1, 0:10]
+        desc[3, 30:40] = desc[3, 0:10]
+    pairs = np.asarray([(i, j) for i in range(B) for j in range(i + 1, B)],
+                       np.int32)
+    return desc.astype(np.float32), valid, pairs
+
+
+def _rect_descriptors(is_binary, nq=200, nt=237, seed=1, d=128):
+    """One query set against one target set of another length, as the
+    reference's kernel test builds them (`d`: the float rows' width)."""
+    rng = np.random.RandomState(seed)
+    if is_binary:
+        a = (rng.rand(nq, 256) > 0.5).astype(np.float32)
+        b = (rng.rand(nt, 256) > 0.5).astype(np.float32)
+    else:
+        a = rng.randn(nq, d).astype(np.float32)
+        b = rng.randn(nt, d).astype(np.float32)
+    vb = np.ones(nt, bool)
+    vb[:3] = False
+    return a, b, vb
+
+
+def assert_two_nn_close(got, ref, desc_q, desc_t, rtol=1e-3, atol=1e-3):
+    """The float 2-NN's stated tolerance. got/ref: (d0, d1, i0) arrays with
+    the query axis last; desc_q: (..., Nq, D), desc_t: (..., Nt, D) with
+    the same leading axes. d0 and d1 agree within rtol * |ref| + atol; i0
+    is equal wherever the reference's d1 - d0 exceeds that tolerance, and
+    elsewhere it names a target no further away than the reference's d1
+    (one of the two nearest)."""
+    gd0, gd1, gi0 = [np.asarray(x) for x in got]
+    rd0, rd1, ri0 = [np.asarray(x) for x in ref]
+    real = rd0 < 1e29
+    tol0 = rtol * np.abs(rd0) + atol
+    assert (np.abs(gd0 - rd0) <= tol0).all()
+    assert (np.abs(gd1 - rd1) <= rtol * np.abs(rd1) + atol).all()
+    clear = (rd1 - rd0) > 2 * tol0
+    np.testing.assert_array_equal(gi0[clear], ri0[clear])
+    near = real & ~clear
+    if near.any():
+        q = np.asarray(desc_q, np.float64)
+        t = np.take_along_axis(np.asarray(desc_t, np.float64),
+                               gi0[..., None].astype(np.int64), axis=-2)
+        direct = ((q - t) ** 2).sum(-1)
+        assert (direct[near] <= rd1[near] * (1 + rtol) + atol).all()
 
 
 def _sampler_inputs(B=2, H=160, W=256, C=3, th=64, tw=256, seed=0):
@@ -99,3 +161,86 @@ def test_bilinear_cuda_equals_plain(cuda_device, inputs):
     assert bilinear_sample.launches == before + 1
     ref = bilinear_sample_plain(*args)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "all_invalid", "ties"])
+def test_two_nn_pairs_float_cuda_close_to_plain(cuda_device, case):
+    desc, valid, pairs = _float_descriptors(case)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (desc, valid, pairs)]
+    before = two_nn_pairs.launches
+    got = two_nn_pairs(*args, is_binary=False)
+    torch.cuda.synchronize()
+    assert two_nn_pairs.launches == before + 1
+    ref = two_nn_pairs_plain(*args, is_binary=False)
+    assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
+                        desc[pairs], desc[pairs[:, ::-1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", [237, 256, 1, 9000])
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_cuda_against_plain(cuda_device, is_binary, nt):
+    """Rectangular sets; nt = 256 has no padded column, 9000 goes through
+    many target tiles (past the reference kernel's 8192-target limit)."""
+    a, b, vb = _rect_descriptors(is_binary, nt=nt)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (a, b, vb)]
+    before = two_nn.launches
+    got = two_nn(*args, is_binary=is_binary)
+    torch.cuda.synchronize()
+    assert two_nn.launches == before + 1
+    ref = two_nn_plain(*args, is_binary=is_binary)
+    if is_binary:
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    else:
+        assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
+                            a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 160, 256])
+def test_two_nn_float_cuda_other_widths(cuda_device, d):
+    """Float rows narrower than the kernel's 128-column staging chunk, and
+    wider: 160 ends in a partial second chunk, 256 fills two."""
+    a, b, vb = _rect_descriptors(False, d=d)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (a, b, vb)]
+    got = two_nn(*args, is_binary=False)
+    ref = two_nn_plain(*args, is_binary=False)
+    assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref], a, b)
+    # the same rows as one pair of a batch, both directions
+    n = min(a.shape[0], b.shape[0])
+    desc = np.stack([a[:n], b[:n]])
+    valid = np.stack([np.ones(n, bool), vb[:n]])
+    pairs = np.asarray([[0, 1]], np.int32)
+    dev = [torch.as_tensor(x, device=cuda_device)
+           for x in (desc, valid, pairs)]
+    got = two_nn_pairs(*dev, is_binary=False)
+    ref = two_nn_pairs_plain(*dev, is_binary=False)
+    assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
+                        desc[pairs], desc[pairs[:, ::-1]])
+
+
+@pytest.mark.cuda
+def test_two_nn_cuda_all_targets_invalid(cuda_device):
+    a, b, vb = _rect_descriptors(True, nq=64, nt=64)
+    vb[:] = False
+    d0, d1, i0 = two_nn(*[torch.as_tensor(x, device=cuda_device)
+                          for x in (a, b, vb)])
+    assert bool((d0 >= 1e29).all()) and bool((i0 == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "all_invalid", "ties"])
+def test_two_nn_cuda_equals_two_nn_pairs_forward(cuda_device, case):
+    """With 61 rows both paddings leave a padded column, so `two_nn` of a
+    pair equals `two_nn_pairs`' forward direction exactly."""
+    desc, valid, pairs = _descriptors(case)
+    dev = [torch.as_tensor(a, device=cuda_device)
+           for a in (desc, valid, pairs)]
+    batched = two_nn_pairs(*dev)
+    for p, (i, j) in enumerate(pairs):
+        one = two_nn(dev[0][i], dev[0][j], dev[1][j])
+        for a, b in zip(one, batched):
+            assert torch.equal(a, b[p, 0])

@@ -20,6 +20,10 @@ from stitching_tpu_torch import pipeline as tp
 from stitching_tpu_torch.camera_estimator import CameraEstimator
 from stitching_tpu_torch.feature_matcher import FeatureMatcher
 
+# The suite's workers run side by side on a few cores: keep each one's
+# intra-op pool small, or the pools spin against each other.
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def images():

@@ -1,9 +1,12 @@
-"""The port's `Stitcher` against `stitching_tpu.Stitcher` on the slice.
+"""The port's `Stitcher` against `stitching_tpu.Stitcher` on the slices.
 
-The slice configuration (`stitching_tpu_torch.SLICE`) runs through both
-packages on the rotation fixture, on both registration branches: the sync
-one (inputs already at MEDIUM size) and the downscaled one
-(`medium_megapix=0.1`, gray MEDIUM stack from the host 8.8 conversion).
+The slice configurations (`stitching_tpu_torch.SLICE` and `SLICE2`) run
+through both packages on the rotation fixture. `SLICE` runs on both
+registration branches: the sync one (inputs already at MEDIUM size) and
+the downscaled one (`medium_megapix=0.1`, gray MEDIUM stack from the host
+8.8 conversion). `SLICE2` adds bundle adjustment, wave correction, the crop
+and block-gain exposure; `test_torch_slice2.py` holds it against the JAX
+package.
 """
 
 import subprocess
@@ -11,13 +14,19 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import stitching_tpu
 import stitching_tpu_torch
 from fixtures import rotation_set
 from stitching_tpu import engine as jax_engine
-from stitching_tpu_torch import SLICE, Stitcher, StitchingError, convert
+from stitching_tpu_torch import (SLICE, SLICE2, Stitcher, StitchingError,
+                                 convert)
 from stitching_tpu_torch import engine
+
+# The suite's workers run side by side on a few cores: keep each one's
+# intra-op pool small, or the pools spin against each other.
+torch.set_num_threads(2)
 
 BRANCHES = {"sync": {}, "downscaled": {"medium_megapix": 0.1}}
 
@@ -129,19 +138,19 @@ def test_unknown_setting_raises():
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("adjuster", "ray", "bundle adjustment"),
-    ("adjuster", "reproj", "bundle adjustment"),
-    ("wave_correct_kind", "horiz", "wave correction"),
-    ("crop", True, "crop and LIR"),
-    ("compensator", "gain_blocks", "exposure"),
-    ("compensator", "channel", "exposure"),
+    ("adjuster", "affine", "other settings"),
+    ("compensator", "gain", "other settings"),
+    ("compensator", "channel", "other settings"),
     ("finder", "dp_color", "seams"),
+    ("finder", "dp_colorgrad", "seams"),
+    ("finder", "gc_colorgrad", "seams"),
     ("finder", "gc_color", "seams"),
     ("finder", "voronoi", "seams"),
     ("blender_type", "multiband", "multiband"),
     ("blender_type", "feather", "multiband"),
     ("detector", "sift", "SIFT/BRISK/AKAZE"),
     ("detector", "akaze", "SIFT/BRISK/AKAZE"),
+    ("detector", "brisk", "SIFT/BRISK/AKAZE"),
     ("matcher_type", "affine", "other settings"),
     ("estimator", "affine", "other settings"),
     ("warper_type", "cylindrical", "other settings"),
@@ -155,8 +164,28 @@ def test_unported_setting_raises_not_implemented(setting, value, item):
 
 
 def test_default_settings_not_ported_yet():
+    """Only the seam finder and the blender stand between `SLICE2` and the
+    defaults."""
     with pytest.raises(NotImplementedError):
         Stitcher(device="cpu")
+    for missing in ("finder", "blender_type"):
+        partial = {k: v for k, v in SLICE2.items() if k != missing}
+        with pytest.raises(NotImplementedError) as e:
+            Stitcher(device="cpu", **partial)
+        assert missing in str(e.value)
+
+
+@pytest.mark.parametrize("setting,value", [
+    ("adjuster", "ray"), ("adjuster", "reproj"), ("adjuster", "no"),
+    ("wave_correct_kind", "horiz"), ("wave_correct_kind", "vert"),
+    ("wave_correct_kind", "auto"), ("wave_correct_kind", "no"),
+    ("crop", True), ("crop", False),
+    ("compensator", "gain_blocks"), ("compensator", "channel_blocks"),
+    ("compensator", "no"),
+])
+def test_ported_setting_is_accepted(setting, value):
+    st = Stitcher(device="cpu", **{**SLICE2, setting: value})
+    assert st.settings[setting] == value
 
 
 def test_package_imports_neither_jax_nor_reference():
