@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds every CUDA kernel of the port from `stitching_tpu_torch/csrc`;
+2. builds every CUDA kernel of the port from `stitching_tpu_torch/csrc`,
+   then holds the two 2-NN kernels against their plain versions at the
+   shapes where their tiles end (query rows around 16 and 64, targets
+   around 8, 64 and 1024, other descriptor widths, ties planted across
+   every kind of edge, forced grids), before anything is timed;
 3. drives the port's paths on 8 rendered views of 1600x1200 (the bench
    workload: focal 1400, +-0.6 rad), each once to warm up and once with
    the kernels' launch counters set to 0 just before and read just after,
@@ -18,7 +22,10 @@
    the paths gave it, and times kernel, plain version and, where one
    exists, a PyTorch library call computing the same function (device
    time per call from a CUDA graph replay; the kernel wrapper's
-   CUDA-event time, host launch included, beside it);
+   CUDA-event time, host launch included, beside it), and the launch
+   floor: an empty kernel launched as often as the call launches kernels
+   (counted by capturing one call, and held against what the wrapper's
+   module states);
 5. profiles one `SLICE2` stitch (device busy share, the device operations
    that take longest);
 6. checks the output: the cameras against the rendered ground truth, the
@@ -29,6 +36,7 @@
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -42,6 +50,12 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_FLOPS_PER_S = 67e12
+# 1-bit operands have no published peak. scripts/probe_mma_rate.cu measured
+# the `m16n8k256 .and.popc` product at 21,703 bit products a clock an SM on
+# this card (as many instructions a clock as the int8 `mma`, each 8 times as
+# deep), 5.3 times the 4,096 byte products a clock an SM behind the int8
+# peak: a rate the card has shown, so a lower bound of its 1-bit peak
+B1_OPS_PER_S = 5.3 * INT8_OPS_PER_S
 
 FOCAL = 1400.0
 MAX_ANGLE = 0.6
@@ -157,15 +171,59 @@ def times_text(t):
                     for k, v in t.items())
 
 
-def kernel_times(kernel, plain, library=None, iters=20):
+def kernel_times(kernel, plain, launches, library=None, iters=20):
     """ms, plain_ms and library_ms of one function on the same inputs,
     each from a CUDA graph replay; call_ms is the CUDA-event time of
-    back-to-back calls of the kernel's wrapper, host launch included."""
+    back-to-back calls of the kernel's wrapper, host launch included;
+    floor_ms is the graph-replay time of an empty kernel launched
+    `launches` times, as often as one call of `kernel` launches kernels."""
+    from stitching_tpu_torch.ops import kernels
+
+    empty = kernels.load("launch_floor")
+    dev = torch.device("cuda")
     return {"ms": graph_ms(kernel, iters),
             "call_ms": time_ms(kernel, iters),
+            # the stream is read inside the capture: it is the graph's own
+            "floor_ms": graph_ms(
+                lambda: kernels.check(empty(launches,
+                                            kernels.stream_ptr(dev)),
+                                      "launch_floor"), iters),
             "plain_ms": graph_ms(plain, max(iters // 4, 3)),
             "library_ms": None if library is None else graph_ms(library,
                                                                 iters)}
+
+
+def launched_kernels(fn, expect, what):
+    """Kernels one call of `fn` launches, counted by capturing the call on
+    a side stream (nothing captured runs); fails unless that equals
+    `expect`, the figure the wrapper's module states."""
+    from stitching_tpu_torch.ops import kernels
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        kernels.check(kernels.load("capture_begin")(
+            ctypes.c_void_p(side.cuda_stream)), "capture_begin")
+        try:
+            fn()
+        finally:
+            seen = kernels.load("capture_end")(
+                ctypes.c_void_p(side.cuda_stream))
+    if seen != expect:
+        raise AssertionError(f"{what}: one call launched {seen} kernels "
+                             f"(negative: a CUDA error), {expect} expected")
+    return seen
+
+
+def two_nn_launches(call, nq, nt, batch, is_binary, what):
+    """Kernels one 2-NN call launches: counted, and held against what the
+    wrapper's module states for the planned grid."""
+    from stitching_tpu_torch.ops.kernels import two_nn as nn
+
+    splits = nn.launch_plan(nq, nt, batch, nn._sm_count(torch.device("cuda")),
+                            bool(is_binary))[1]
+    return launched_kernels(call, nn.kernel_launches(splits), what)
 
 
 class Recorder:
@@ -215,6 +273,8 @@ def float_two_nn_err(got, ref, desc_q, desc_t, what):
     if not bool((direct[near] <= rd1[near] * 1.001 + 1e-3).all()):
         raise AssertionError(f"{what}: i0 is not one of the two nearest")
     real = rd1 < 1e29
+    if not bool(real.any()):
+        return 0.0
     return float(torch.stack([(gd0 - rd0).abs()[real].max(),
                               (gd1 - rd1).abs()[real].max()]).max())
 
@@ -257,17 +317,20 @@ def check_two_nn_pairs(call, what):
         err = float_two_nn_err(out, ref, desc[pij], desc[pij.flip(1)], what)
     B, N, D = desc.shape
     P = pair_ij.shape[0]
+    def kernel():
+        return two_nn_pairs(desc, valid, pair_ij, **kw)
+
     times = kernel_times(
-        lambda: two_nn_pairs(desc, valid, pair_ij, **kw),
-        lambda: two_nn_pairs_plain(desc, valid, pair_ij, **kw), iters=50)
+        kernel, lambda: two_nn_pairs_plain(desc, valid, pair_ij, **kw),
+        two_nn_launches(kernel, N, N, 2 * P, is_binary, what), iters=50)
     nbytes = (desc.numel() * 4 + valid.numel() + pair_ij.numel() * 4
               + 3 * P * 2 * N * 4)
-    # the distance products: 2 operations per element pair; exact in int8
-    # for {0,1} rows, float32 FMAs outside the tensor cores otherwise. One
-    # N x N product per pair serves both directions (the backward
-    # direction's is its transpose)
+    # the distance products: 2 operations per element pair; 1-bit tensor
+    # products for {0,1} rows, float32 FMAs outside the tensor cores
+    # otherwise. One N x N product per pair serves both directions (the
+    # backward direction's is its transpose)
     ops = 2.0 * P * N * N * D
-    bound, both = bounds_of(nbytes, ops, INT8_OPS_PER_S if is_binary
+    bound, both = bounds_of(nbytes, ops, B1_OPS_PER_S if is_binary
                             else FP32_FLOPS_PER_S)
     print(f"{what} desc {tuple(desc.shape)} P={P}: max_abs_err={err:.3g} "
           f"against plain; {times_text(times)} bound_us "
@@ -313,11 +376,16 @@ def check_two_nn(calls, what):
                                      "two_nn_pairs' forward direction")
     nq, D = q.shape
     nt = t.shape[0]
-    times = kernel_times(lambda: two_nn(q, t, vt, **kw),
-                         lambda: two_nn_plain(q, t, vt, **kw), iters=50)
+
+    def kernel():
+        return two_nn(q, t, vt, **kw)
+
+    times = kernel_times(kernel, lambda: two_nn_plain(q, t, vt, **kw),
+                         two_nn_launches(kernel, nq, nt, 1, is_binary, what),
+                         iters=50)
     nbytes = (nq + nt) * D * 4 + nt + 3 * nq * 4
     ops = 2.0 * nq * nt * D
-    bound, both = bounds_of(nbytes, ops, INT8_OPS_PER_S if is_binary
+    bound, both = bounds_of(nbytes, ops, B1_OPS_PER_S if is_binary
                             else FP32_FLOPS_PER_S)
     print(f"{what} {nq} x {nt} x {D} (and {nq} x 300): max_abs_err="
           f"{err:.3g} against plain; {times_text(times)} bound_us "
@@ -355,9 +423,13 @@ def check_sampler(calls):
     lib_err = float((lib.permute(0, 2, 3, 1)
                      - bilinear_sample(data, sxc, syc, care)).abs()[care]
                     .max())
+
+    def kernel():
+        return bilinear_sample(data, sxc, syc, care)
+
     times = kernel_times(
-        lambda: bilinear_sample(data, sxc, syc, care),
-        lambda: bilinear_sample_plain(data, sxc, syc, care),
+        kernel, lambda: bilinear_sample_plain(data, sxc, syc, care),
+        launched_kernels(kernel, 1, "bilinear_sample"),
         lambda: F.grid_sample(planes, grid, mode="bilinear",
                               padding_mode="border", align_corners=True))
     # the stack, both coordinate planes and the output; `care` is not read
@@ -369,6 +441,138 @@ def check_sampler(calls):
           f"bytes={both['bytes'] * 1e3:.2f} "
           f"ops={both['operations'] * 1e3:.2f}", flush=True)
     return dict(max_abs_err=max(errs), **bound, **times)
+
+
+# pairs of columns holding the same target row: one thread's two columns
+# of an `mma` tile, two lanes of a quad, two tiles of a step, one float
+# thread's next column, two float lanes, the segment's and the float
+# tile's edge (64), two steps, the binary staging chunk's edge (1024)
+TIE_COLUMNS = [(0, 1), (4, 6), (8, 17), (3, 11), (20, 21), (63, 64),
+               (60, 70), (127, 128), (1023, 1024), (1000, 1100), (2, 1299)]
+
+
+def boundary_sets(is_binary, nq, nt, d, rng):
+    """Query and target rows with near-duplicates planted (every third query
+    copies a target, some targets copy each other) and ~10% invalid
+    targets."""
+    if is_binary:
+        q = (rng.rand(nq, d) > 0.5).astype(np.float32)
+        t = (rng.rand(nt, d) > 0.5).astype(np.float32)
+    else:
+        q = rng.randn(nq, d).astype(np.float32)
+        t = rng.randn(nt, d).astype(np.float32)
+    for r in range(0, nq, 3):
+        q[r] = t[rng.randint(nt)]
+    for _ in range(max(nt // 8, 1)):
+        t[rng.randint(nt)] = t[rng.randint(nt)]
+    return q, t, rng.rand(nt) > 0.1
+
+
+def boundary_phase(dev):
+    """Both 2-NN kernels against their plain versions where their tiles
+    end, binary rows bit for bit and float rows to the stated tolerance.
+    Raises on the first disagreement; nothing is timed."""
+    from stitching_tpu_torch.ops.kernels import two_nn as nn
+
+    def check(q, t, vt, is_binary, what):
+        args = [torch.as_tensor(x, device=dev) for x in (q, t, vt)]
+        got = nn.two_nn(*args, is_binary=is_binary)
+        ref = nn.two_nn_plain(*args, is_binary=is_binary)
+        torch.cuda.synchronize()
+        if is_binary:
+            for name, a, b in zip(("d0", "d1", "i0"), got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"boundary {what}: {name} differs "
+                                         "from the plain version")
+        else:
+            float_two_nn_err(got, ref, args[0], args[1], f"boundary {what}")
+        return got
+
+    def check_pairs(desc, valid, pairs, is_binary, what):
+        args = [torch.as_tensor(x, device=dev) for x in (desc, valid, pairs)]
+        got = nn.two_nn_pairs(*args, is_binary=is_binary)
+        ref = nn.two_nn_pairs_plain(*args, is_binary=is_binary)
+        torch.cuda.synchronize()
+        if is_binary:
+            for name, a, b in zip(("d0", "d1", "i0"), got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"boundary {what}: {name} differs "
+                                         "from the plain version")
+        else:
+            pij = args[2].long()
+            float_two_nn_err(got, ref, args[0][pij], args[0][pij.flip(1)],
+                             f"boundary {what}")
+
+    planned = nn.launch_plan
+    rng = np.random.RandomState(11)
+    n_cases = 0
+    for is_binary in (True, False):
+        kind = "binary" if is_binary else "float"
+        width = 256 if is_binary else 128
+        # query rows and targets around the tiles' edges
+        for nq in (1, 15, 16, 17, 63, 65, 500, 513):
+            for nt in (1, 7, 8, 9, 63, 64, 65, 500, 1025, 4097):
+                q, t, vt = boundary_sets(is_binary, nq, nt, width, rng)
+                check(q, t, vt, is_binary, f"{kind} {nq} x {nt}")
+                n_cases += 1
+        q, t, vt = boundary_sets(is_binary, 70, 9000, width, rng)
+        check(q, t, vt, is_binary, f"{kind} 70 x 9000")
+        # other descriptor widths (130 floats: rows not 16-byte aligned; 160
+        # and 256: the query chunk restaged with every step), as rows and as
+        # pairs of a batch, a pair of an image with itself included
+        for d in ((32, 100) if is_binary else (4, 64, 130, 160, 256)):
+            q, t, vt = boundary_sets(is_binary, 77, 203, d, rng)
+            check(q, t, vt, is_binary, f"{kind} width {d}")
+            desc = np.stack([q, t[:77], t[77:154]])
+            valid = np.stack([np.ones(77, bool), vt[:77], vt[77:154]])
+            pairs = np.asarray([[0, 1], [0, 2], [1, 2], [1, 1]], np.int32)
+            check_pairs(desc, valid, pairs, is_binary,
+                        f"{kind} pairs width {d}")
+            n_cases += 2
+        # every target invalid, with and without a padded column
+        for nq, nt in ((40, 256), (40, 300), (1, 1)):
+            q, t, vt = boundary_sets(is_binary, nq, nt, width, rng)
+            got = check(q, t, np.zeros(nt, bool), is_binary,
+                        f"{kind} all invalid {nq} x {nt}")
+            if not (bool((got[2] == 0).all())
+                    and bool((got[0] >= 1e29).all())):
+                raise AssertionError(f"boundary {kind}: all targets invalid "
+                                     "must give i0 = 0, d0 = 1e30")
+            n_cases += 1
+        # ties across every kind of edge, under the planned grid and forced
+        # ones (query rows a block, target segments)
+        nt = 1300
+        for plan in (None, (64, 1), (128, 1), (64, 3), (128, 5), (64, 21)):
+            if plan is not None:
+                rows = 64 if is_binary else plan[0]
+                units = -(-nt // nn.SPLIT_UNIT)
+                per_seg = -(-units // plan[1])
+                forced = (rows, -(-units // per_seg),
+                          per_seg * nn.SPLIT_UNIT)
+                nn.launch_plan = lambda *a, forced=forced: forced
+            q, t, _ = boundary_sets(is_binary, 70, nt, width, rng)
+            for k, (a, b) in enumerate(TIE_COLUMNS):
+                row = ((rng.rand(width) > 0.5).astype(np.float32)
+                       if is_binary else rng.randn(width).astype(np.float32))
+                t[a] = t[b] = q[k] = row
+                if is_binary:
+                    q[k, k] = 1 - q[k, k]
+                else:
+                    q[k, :4] += 0.25
+            d0, d1, i0 = check(q, t, np.ones(nt, bool), is_binary,
+                               f"{kind} ties, grid {plan}")
+            nn.launch_plan = planned
+            want = torch.tensor([a for a, _ in TIE_COLUMNS], device=dev)
+            k = len(TIE_COLUMNS)
+            if not (torch.equal(i0[:k].long(), want)
+                    and torch.equal(d0[:k], d1[:k])):
+                raise AssertionError(
+                    f"boundary {kind} ties, grid {plan}: the lower of two "
+                    "equal columns must win and d1 = d0")
+            n_cases += 1
+    print(f"boundary shapes: {n_cases} cases of two_nn and two_nn_pairs, "
+          "binary equal to plain, float within 1e-3 relative + 1e-3",
+          flush=True)
 
 
 def profile_stitch(st, imgs):
@@ -536,6 +740,12 @@ def main():
           flush=True)
 
     dev = torch.device("cuda")
+    t0 = time.time()
+    boundary_phase(dev)
+    print(f"boundary phase: {time.time() - t0:.1f} s", flush=True)
+    for w in (two_nn, two_nn_pairs):
+        w.launches = 0
+
     imgs, Rs_true = rotation_set(8, (1600, 1200), FOCAL, MAX_ANGLE, dev)
     print(f"rendered {len(imgs)} views of {imgs[0].shape}", flush=True)
 

@@ -4,11 +4,11 @@ Each kernel is CUDA C++ in `stitching_tpu_torch/csrc/` with a plain C
 interface; one source may hold several C entries. `load(entry)` compiles
 the entry's source `csrc/<name>.cu` with nvcc for sm_90a into
 `build/stitching_tpu_torch/` at the repository root (a cache keyed by a hash
-of the source and the flags), loads it with ctypes and returns the C entry
-with the argument types of `ENTRIES` set. Nothing compiles at
-import time: the CPU tests import every module, and there a wrapper runs its
-kernel's plain PyTorch version because the tensor it was given lies on the
-CPU. A CUDA tensor launches the kernel or raises.
+of the source, the headers beside it and the flags), loads it with ctypes
+and returns the C entry with the argument types of `ENTRIES` set. Nothing
+compiles at import time: the CPU tests import every module, and there a
+wrapper runs its kernel's plain PyTorch version because the tensor it was
+given lies on the CPU. A CUDA tensor launches the kernel or raises.
 """
 
 import ctypes
@@ -24,15 +24,25 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "stitching_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the 2-NN entries: three inputs and the scratch, its size, three outputs,
+# the sizes and the launch plan (rows a block, segments, targets a segment)
+_PAIRS = [_P] * 4 + [_L] + [_P] * 3 + [_I] * 8 + [_P]
+_ROWS = [_P] * 4 + [_L] + [_P] * 3 + [_I] * 7 + [_P]
 # C entry -> (source, argument types); every entry takes the stream last and
-# returns a cudaError_t
+# returns a cudaError_t (but `capture_end`)
 ENTRIES = {
-    "two_nn_pairs_binary": ("two_nn", [_P] * 7 + [_I] * 5 + [_P]),
-    "two_nn_binary": ("two_nn", [_P] * 8 + [_I] * 4 + [_P]),
-    "two_nn_pairs_float": ("two_nn_float", [_P] * 8 + [_I] * 5 + [_P]),
-    "two_nn_float": ("two_nn_float", [_P] * 8 + [_I] * 4 + [_P]),
+    "two_nn_pairs_binary": ("two_nn", _PAIRS),
+    "two_nn_binary": ("two_nn", _ROWS),
+    "two_nn_pairs_float": ("two_nn_float", _PAIRS),
+    "two_nn_float": ("two_nn_float", _ROWS),
     "bilinear_sample": ("bilinear_sample", [_P] * 4 + [_I] * 6 + [_P]),
+    # measurement aids: empty launches, the floor under every kernel's time;
+    # and a stream capture that counts what one call launches (`capture_end`
+    # returns the count, or minus a cudaError_t)
+    "launch_floor": ("launch_floor", [_I, _P]),
+    "capture_begin": ("launch_floor", [_P]),
+    "capture_end": ("launch_floor", [_P]),
 }
 KERNELS = tuple(dict.fromkeys(src for src, _ in ENTRIES.values()))
 
@@ -53,15 +63,20 @@ def _nvcc():
 
 
 def library_path(name):
-    """Where the built library of kernel `name` lives (content-addressed)."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the built library of kernel `name` lives: content-addressed by
+    its source, every header under `csrc/` (an edit to a shared header
+    rebuilds) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC)
+                     if f.endswith((".cuh", ".h", ".hpp")))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            digest.update(fname.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _compile_cmd(name, out):
-    return [_nvcc(), *NVCC_FLAGS, "-o", out,
-            os.path.join(CSRC, name + ".cu")]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, name + ".cu")]
 
 
 def build(names=KERNELS):

@@ -22,6 +22,15 @@ runs its plain version for tensors on the CPU. The float kernel sums the
 products in another order than the plain version's matmul: d0 and d1 agree
 within 1e-3 relative + 1e-3 absolute, and i0 wherever the plain d1 - d0
 exceeds that. The binary kernels equal the plain versions bit for bit.
+
+A call on the card launches a pre-pass over the operand rows (bit packing
+or norms) and the search. `launch_plan` picks the search's grid: the
+query rows a block takes and, where the query rows alone give too few
+blocks for the card, a split of the target axis whose partial top-2s a
+third small launch merges (`csrc/top2.cuh`); `kernel_launches` says how
+many kernels a call launches under a plan. `top2_by_segments`,
+`pack_bits_plain` and `hamming_from_words` are plain versions of the
+kernels' inner steps, for the CPU tests.
 """
 
 import torch
@@ -32,6 +41,16 @@ BIG = 1.0e30
 PAIRS_PAD = 8      # two_nn_pairs pads the target axis to a multiple of this
 ROWS_PAD = 128     # two_nn does, to a multiple of this
 MAX_BINARY_BITS = 256
+WORDS = MAX_BINARY_BITS // 32   # packed 32-bit words per binary row
+SPLIT_UNIT = 64     # the target axis splits into multiples of this
+# per kernel (keyed by is_binary): the query rows a block may take, largest
+# first (the float kernel has a 128-row and a 64-row tile); the blocks per
+# SM that `launch_plan` splits the target axis to reach; and the most
+# targets a segment may hold (the binary kernel keeps a column in 16 bits of
+# its fold key)
+ROWS_PER_BLOCK = {True: (64,), False: (128, 64)}
+BLOCKS_PER_SM = {True: 2, False: 6}
+MAX_SEGMENT = {True: 1 << 16, False: 1 << 30}
 
 
 def _round_up(x, m):
@@ -55,6 +74,104 @@ def _top2(dist, n, pad):
     i0 = torch.where(dist == d0[..., None], cols, n_p).min(dim=-1).values
     d1 = torch.where(cols == i0[..., None], 3.0e38, dist).min(dim=-1).values
     return d0, d1, i0.clamp_max(n - 1).to(torch.int32)
+
+
+def top2_by_segments(dist, n, pad, seg):
+    """`_top2` the way the kernels take it: an ordered top-2 of every
+    segment of `seg` columns (what a walk in column order with a strict
+    `<` leaves: the minimum, its lowest column, the minimum over the other
+    columns), the segments merged by `csrc/top2.cuh`'s rule (the lower d0
+    wins, equal d0 goes to the lower column, d1 = min(winner's d1, loser's
+    d0)), padding and clamp at the end."""
+    shape = dist.shape[:-1]
+    d0 = dist.new_full(shape, 3.0e38)
+    d1 = dist.new_full(shape, 3.0e38)
+    i0 = torch.full(shape, 0x7fffffff, dtype=torch.int64, device=dist.device)
+    for a in range(0, n, seg):
+        part = dist[..., a:min(a + seg, n)]
+        cols = torch.arange(part.shape[-1], device=dist.device)
+        s0 = part.min(dim=-1).values
+        si = torch.where(part == s0[..., None], cols,
+                         part.shape[-1]).min(dim=-1).values
+        s1 = torch.where(cols == si[..., None], 3.0e38,
+                         part).min(dim=-1).values
+        si = si + a
+        mine = (d0 < s0) | ((d0 == s0) & (i0 < si))
+        d1 = torch.where(mine, torch.minimum(d1, s0), torch.minimum(s1, d0))
+        d0 = torch.where(mine, d0, s0)
+        i0 = torch.where(mine, i0, si)
+    if _has_pad(n, pad):
+        d1 = d1.clamp_max(BIG)
+    return d0, d1, i0.clamp_max(n - 1).to(torch.int32)
+
+
+def pack_bits_plain(desc):
+    """A {0,1} float row of up to 256 columns as 8 words of 32 bits (bit k
+    of word w is column 32 w + k, zero beyond the row) and its bit count:
+    (words (..., 8) int64 in [0, 2^32), count (...,) float32)."""
+    bits = desc > 0.5
+    D = bits.shape[-1]
+    if D > MAX_BINARY_BITS:
+        raise ValueError("pack_bits_plain: at most 256 columns")
+    pad = bits.new_zeros(bits.shape[:-1] + (MAX_BINARY_BITS - D,))
+    bits = torch.cat([bits, pad], dim=-1).reshape(
+        bits.shape[:-1] + (WORDS, 32)).to(torch.int64)
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=desc.device)
+    return (bits * weights).sum(-1), bits.sum((-1, -2)).to(torch.float32)
+
+
+def _popcount(x):
+    """Set bits of each int64 in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0f0f0f0f
+    return ((x * 0x01010101) & 0xffffffff) >> 24
+
+
+def hamming_from_words(q_words, q_count, t_words, t_count):
+    """Hamming distances (Nq, Nt) float32 of packed rows by the kernel's
+    formula: s_q + s_t - 2 popc(q & t)."""
+    both = _popcount(q_words[:, None, :] & t_words[None, :, :]).sum(-1)
+    return q_count[:, None] + t_count[None, :] - 2.0 * both.to(torch.float32)
+
+
+def launch_plan(nq, nt, batch, sm_count, is_binary):
+    """The search kernels' grid for `batch` query sets of nq rows against nt
+    targets: (query rows a block, target segments, targets a segment). The
+    largest tile of `ROWS_PER_BLOCK` that still gives every SM a block, else
+    the smallest; then, if that leaves fewer than `BLOCKS_PER_SM` blocks an
+    SM, the target axis splits into equal segments of whole `SPLIT_UNIT`s
+    until the blocks suffice or a segment is one unit. A segment never
+    exceeds `MAX_SEGMENT`."""
+    for rows in ROWS_PER_BLOCK[is_binary]:
+        blocks = -(-nq // rows) * batch
+        if blocks >= sm_count:
+            break
+    units = -(-nt // SPLIT_UNIT)
+    want = BLOCKS_PER_SM[is_binary] * sm_count
+    splits = max(min(units, -(-want // blocks)),
+                 -(-nt // MAX_SEGMENT[is_binary]))
+    per_seg = -(-units // splits)
+    return rows, -(-units // per_seg), per_seg * SPLIT_UNIT
+
+
+def kernel_launches(splits):
+    """Kernels one call on the card launches under a plan of `splits`
+    target segments: the pre-pass, the search and, with a split target
+    axis, the merge."""
+    return 3 if splits > 1 else 2
+
+
+def _scratch(dev, rows_units, nq, batch, splits):
+    """The kernels' scratch (int32 units): `rows_units` for the pre-pass's
+    outputs and, with a split target axis, the partial top-2s (splits,
+    batch, nq, 3)."""
+    partial = 3 * splits * batch * nq if splits > 1 else 0
+    return torch.empty((rows_units + partial,), dtype=torch.int32, device=dev)
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _norms(desc, is_binary):
@@ -133,19 +250,18 @@ def two_nn_pairs(desc, valid, pair_ij, *, is_binary=True):
         return d0, d1, i0
     pad_col = int(_has_pad(N, PAIRS_PAD))
     with torch.cuda.device(dev):
-        if is_binary:
-            words = torch.empty((B, N, 8), dtype=torch.int32, device=dev)
-            status = load("two_nn_pairs_binary")(
-                desc.data_ptr(), valid.data_ptr(), pair_ij.data_ptr(),
-                words.data_ptr(), d0.data_ptr(), d1.data_ptr(),
-                i0.data_ptr(), B, N, D, P, pad_col, stream_ptr(dev))
-        else:
-            norm = torch.empty((2, B, N), dtype=torch.float32, device=dev)
-            status = load("two_nn_pairs_float")(
-                desc.data_ptr(), valid.data_ptr(), pair_ij.data_ptr(),
-                norm[0].data_ptr(), norm[1].data_ptr(), d0.data_ptr(),
-                d1.data_ptr(), i0.data_ptr(), B, N, D, P, pad_col,
-                stream_ptr(dev))
+        is_binary = bool(is_binary)
+        rows, splits, seg = launch_plan(N, N, 2 * P, _sm_count(dev),
+                                        is_binary)
+        # per operand row: 8 words and two bit counts, or two norms
+        scratch = _scratch(dev, B * N * ((WORDS + 2) if is_binary else 2), N,
+                           2 * P, splits)
+        entry = "two_nn_pairs_binary" if is_binary else "two_nn_pairs_float"
+        status = load(entry)(
+            desc.data_ptr(), valid.data_ptr(), pair_ij.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), d0.data_ptr(),
+            d1.data_ptr(), i0.data_ptr(), B, N, D, P, pad_col, rows, splits,
+            seg, stream_ptr(dev))
     check(status, "two_nn_pairs")
     two_nn_pairs.launches += 1
     return d0, d1, i0
@@ -181,20 +297,15 @@ def two_nn(desc_q, desc_t, valid_t, *, is_binary=True):
         return d0, d1, i0
     pad_col = int(_has_pad(nt, ROWS_PAD))
     with torch.cuda.device(dev):
-        if is_binary:
-            words = torch.empty((nq + nt, 8), dtype=torch.int32, device=dev)
-            status = load("two_nn_binary")(
-                desc_q.data_ptr(), desc_t.data_ptr(), valid_t.data_ptr(),
-                words[:nq].data_ptr(), words[nq:].data_ptr(), d0.data_ptr(),
-                d1.data_ptr(), i0.data_ptr(), nq, nt, D, pad_col,
-                stream_ptr(dev))
-        else:
-            norm = torch.empty((nq + nt,), dtype=torch.float32, device=dev)
-            status = load("two_nn_float")(
-                desc_q.data_ptr(), desc_t.data_ptr(), valid_t.data_ptr(),
-                norm[:nq].data_ptr(), norm[nq:].data_ptr(), d0.data_ptr(),
-                d1.data_ptr(), i0.data_ptr(), nq, nt, D, pad_col,
-                stream_ptr(dev))
+        is_binary = bool(is_binary)
+        rows, splits, seg = launch_plan(nq, nt, 1, _sm_count(dev), is_binary)
+        scratch = _scratch(dev, (nq + nt) * ((WORDS + 2) if is_binary else 1),
+                           nq, 1, splits)
+        status = load("two_nn_binary" if is_binary else "two_nn_float")(
+            desc_q.data_ptr(), desc_t.data_ptr(), valid_t.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), d0.data_ptr(),
+            d1.data_ptr(), i0.data_ptr(), nq, nt, D, pad_col, rows, splits,
+            seg, stream_ptr(dev))
     check(status, "two_nn")
     two_nn.launches += 1
     return d0, d1, i0

@@ -244,3 +244,257 @@ def test_two_nn_cuda_equals_two_nn_pairs_forward(cuda_device, case):
         one = two_nn(dev[0][i], dev[0][j], dev[1][j])
         for a, b in zip(one, batched):
             assert torch.equal(a, b[p, 0])
+
+
+# ---- the redesigned 2-NN kernels at their tile edges -------------------
+# A warp owns 16 query rows (32 in the float kernel's larger tile); the
+# binary kernel walks targets 32 at a time (four `mma` tiles of 8) and
+# stages 1024 at a time, the float kernel takes 64 a tile; the target axis
+# splits into segments of whole 64s.
+
+def _edge_sets(is_binary, nq, nt, d, seed=0):
+    """Query and target rows with planted near-duplicates, so ties and
+    near-ties exist at any size, and a few invalid targets."""
+    rng = np.random.RandomState(seed + 7 * nq + 13 * nt + d)
+    if is_binary:
+        q = (rng.rand(nq, d) > 0.5).astype(np.float32)
+        t = (rng.rand(nt, d) > 0.5).astype(np.float32)
+    else:
+        q = rng.randn(nq, d).astype(np.float32)
+        t = rng.randn(nt, d).astype(np.float32)
+    # every third query is a copy of some target; some targets are copies
+    # of each other (equal distances at two columns)
+    for r in range(0, nq, 3):
+        q[r] = t[rng.randint(nt)]
+    for _ in range(max(nt // 8, 1)):
+        t[rng.randint(nt)] = t[rng.randint(nt)]
+    vt = rng.rand(nt) > 0.1
+    return q, t, vt
+
+
+def _check_two_nn(dev, q, t, vt, is_binary):
+    args = [torch.as_tensor(x, device=dev) for x in (q, t, vt)]
+    before = two_nn.launches
+    got = two_nn(*args, is_binary=is_binary)
+    torch.cuda.synchronize()
+    assert two_nn.launches == before + 1
+    ref = two_nn_plain(*args, is_binary=is_binary)
+    if is_binary:
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    else:
+        assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
+                            q, t)
+    return got
+
+
+def _check_two_nn_pairs(dev, desc, valid, pairs, is_binary):
+    args = [torch.as_tensor(x, device=dev) for x in (desc, valid, pairs)]
+    got = two_nn_pairs(*args, is_binary=is_binary)
+    torch.cuda.synchronize()
+    ref = two_nn_pairs_plain(*args, is_binary=is_binary)
+    if is_binary:
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    else:
+        assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
+                            desc[pairs], desc[pairs[:, ::-1]])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", [1, 7, 8, 9, 63, 64, 65, 500, 4097, 9000])
+@pytest.mark.parametrize("nq", [1, 15, 16, 17, 500, 513])
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_cuda_tile_edges(cuda_device, is_binary, nq, nt):
+    q, t, vt = _edge_sets(is_binary, nq, nt, 256 if is_binary else 128)
+    _check_two_nn(cuda_device, q, t, vt, is_binary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_binary,d", [
+    (True, 32), (True, 100), (True, 256), (False, 4), (False, 64),
+    (False, 128), (False, 130), (False, 160), (False, 256)])
+def test_two_nn_cuda_descriptor_widths(cuda_device, is_binary, d):
+    """Binary rows narrower than 256 bits are zero-padded by the packer;
+    float rows of 130 columns are not 16-byte aligned (4-byte copies), 160
+    and 256 restage the query chunk with every step."""
+    q, t, vt = _edge_sets(is_binary, 77, 203, d)
+    _check_two_nn(cuda_device, q, t, vt, is_binary)
+    desc = np.stack([q, t[:77], t[77:154]])
+    valid = np.stack([np.ones(77, bool), vt[:77], vt[77:154]])
+    pairs = np.asarray([[0, 1], [0, 2], [1, 2]], np.int32)
+    _check_two_nn_pairs(cuda_device, desc, valid, pairs, is_binary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs", [1, 28])
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_pairs_cuda_pair_counts(cuda_device, is_binary, n_pairs):
+    rng = np.random.RandomState(3)
+    B, N, d = 8, 150, 256 if is_binary else 128
+    rows = [_edge_sets(is_binary, N, N, d, seed=b)[0] for b in range(B)]
+    for b in range(1, B):               # true matches between neighbours
+        rows[b][:60] = rows[b - 1][rng.permutation(N)[:60]]
+    desc = np.stack(rows)
+    valid = rng.rand(B, N) > 0.1
+    pairs = np.asarray([(i, j) for i in range(B)
+                        for j in range(i + 1, B)], np.int32)[:n_pairs]
+    _check_two_nn_pairs(cuda_device, desc, valid, pairs, is_binary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_pairs_cuda_image_with_itself(cuda_device, is_binary):
+    """Every row's nearest is itself at distance 0 (unless it is invalid
+    or an earlier duplicate exists)."""
+    q, _, _ = _edge_sets(is_binary, 90, 90, 256 if is_binary else 128)
+    q[40] = q[3]
+    desc = np.stack([q, q[::-1].copy()])
+    valid = np.ones((2, 90), bool)
+    valid[0, 5] = False
+    pairs = np.asarray([[0, 0], [1, 1], [0, 1]], np.int32)
+    d0, d1, i0 = _check_two_nn_pairs(cuda_device, desc, valid, pairs,
+                                     is_binary)
+    if is_binary:
+        assert int(i0[0, 0, 40]) == 3 and float(d1[0, 0, 40]) == 0.0
+        assert int(i0[0, 0, 7]) == 7 and float(d0[0, 0, 7]) == 0.0
+        assert int(i0[0, 0, 5]) != 5
+
+
+# pairs of columns holding the same target row: one thread's two columns,
+# two lanes of a quad, two quads, two `mma` tiles, the float tile's edge
+# and the segment edge (64), one float thread's next column (+8), the
+# binary staging chunk's edge (1024)
+_TIE_COLUMNS = [(0, 1), (4, 6), (8, 17), (3, 11), (20, 21), (63, 64),
+                (60, 70), (127, 128), (1023, 1024), (1000, 1100), (2, 1299)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (64, 1), (128, 1), (64, 3),
+                                  (128, 5), (64, 21)])
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_cuda_ties_across_edges(cuda_device, monkeypatch, is_binary,
+                                       plan):
+    """Query row k is nearest to the target row planted at both columns of
+    `_TIE_COLUMNS[k]`: i0 is the lower column and d1 = d0, under the
+    planned grid and under forced ones (query rows a block, target
+    segments; the binary kernel has the 64-row block only)."""
+    import stitching_tpu_torch.ops.kernels.two_nn as mod
+
+    nt, d = 1300, 256 if is_binary else 128
+    if plan is not None:
+        rows, splits = plan
+        rows = mod.ROWS_PER_BLOCK[is_binary][0] if is_binary else rows
+        units = -(-nt // mod.SPLIT_UNIT)
+        per_seg = -(-units // splits)
+        forced = (rows, -(-units // per_seg), per_seg * mod.SPLIT_UNIT)
+        monkeypatch.setattr(mod, "launch_plan", lambda *a: forced)
+    rng = np.random.RandomState(5)
+    nq = 70
+    if is_binary:
+        t = (rng.rand(nt, d) > 0.5).astype(np.float32)
+        q = (rng.rand(nq, d) > 0.5).astype(np.float32)
+    else:
+        t = rng.randn(nt, d).astype(np.float32)
+        q = rng.randn(nq, d).astype(np.float32)
+    for k, (a, b) in enumerate(_TIE_COLUMNS):
+        row = ((rng.rand(d) > 0.5).astype(np.float32) if is_binary
+               else rng.randn(d).astype(np.float32))
+        t[a] = t[b] = row
+        q[k] = row
+        if is_binary:
+            q[k, k] = 1 - q[k, k]           # distance 1 to both
+        else:
+            q[k, :4] += 0.25
+    vt = np.ones(nt, bool)
+    d0, d1, i0 = _check_two_nn(cuda_device, q, t, vt, is_binary)
+    for k, (a, b) in enumerate(_TIE_COLUMNS):
+        assert int(i0[k]) == a
+        assert float(d1[k]) == float(d0[k])
+        if is_binary:
+            assert float(d0[k]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("nq", [1, 127, 128, 129, 513])
+def test_two_nn_float_cuda_large_tile(cuda_device, monkeypatch, nq, splits):
+    """The float kernel's 128-row tile (8 query rows a thread), which the
+    planned grid takes only for many query rows, at its row-block edges."""
+    import stitching_tpu_torch.ops.kernels.two_nn as mod
+
+    monkeypatch.setattr(mod, "launch_plan",
+                        lambda *a: (128, splits, 320 if splits == 1 else 192))
+    q, t, vt = _edge_sets(False, nq, 300, 128)
+    _check_two_nn(cuda_device, q, t, vt, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_binary_cuda_fragment_layout(cuda_device, is_binary):
+    """Every (query row, target column) distance distinct: target c is
+    query 0 with its first c bits flipped and query r is query 0 with its
+    last r bits flipped, so dist(r, c) = r + c for the binary rows; a wrong
+    row or column of the `mma` fragment changes some row's answer. Targets
+    in decreasing order of c, so the nearest is the LAST column."""
+    nq, nt, d = 48, 100, 256
+    base = (np.random.RandomState(9).rand(d) > 0.5).astype(np.float32)
+    q = np.stack([base] * nq)
+    t = np.stack([base] * nt)
+    for r in range(nq):
+        q[r, d - r:] = 1 - q[r, d - r:]
+    for c in range(nt):
+        k = nt - 1 - c                       # column c holds distance k
+        t[c, :k] = 1 - t[c, :k]
+    vt = np.ones(nt, bool)
+    vt[nt - 1 - 4] = False                   # the target at distance 4
+    d0, d1, i0 = _check_two_nn(cuda_device, q, t, vt, is_binary)
+    if is_binary:
+        for r in range(nq):
+            assert int(i0[r]) == nt - 1
+            assert float(d0[r]) == r and float(d1[r]) == r + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_cuda_all_invalid_any_grid(cuda_device, is_binary):
+    """All targets invalid, with and without a padded column, split and
+    unsplit: i0 = 0 and d0 = 1e30."""
+    for nq, nt in [(40, 256), (40, 300), (600, 128), (1, 1)]:
+        q, t, vt = _edge_sets(is_binary, nq, nt, 256 if is_binary else 128)
+        vt[:] = False
+        d0, d1, i0 = _check_two_nn(cuda_device, q, t, vt, is_binary)
+        assert bool((i0 == 0).all()) and bool((d0 >= 1e29).all())
+    desc, valid, pairs = (_descriptors("random") if is_binary
+                          else _float_descriptors("random"))
+    valid[:] = False
+    d0, d1, i0 = _check_two_nn_pairs(cuda_device, desc, valid, pairs,
+                                     is_binary)
+    assert bool((i0 == 0).all()) and bool((d0 >= 1e29).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_binary", [True, False])
+def test_two_nn_cuda_on_another_stream(cuda_device, is_binary):
+    """Both launches of a call go to the current stream: results made on a
+    side stream, with the default stream kept busy, are right after that
+    stream alone is waited for."""
+    q, t, vt = _edge_sets(is_binary, 500, 500, 256 if is_binary else 128)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (q, t, vt)]
+    ref = two_nn_plain(*args, is_binary=is_binary)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    for _ in range(4):
+        busy = busy @ busy * 1e-3            # default stream stays busy
+    with torch.cuda.stream(side):
+        got = [two_nn(*args, is_binary=is_binary) for _ in range(3)][-1]
+    side.synchronize()
+    if is_binary:
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    else:
+        assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
+                            q, t)
+    torch.cuda.synchronize()
