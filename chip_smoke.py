@@ -15,6 +15,10 @@
    - `Stitcher(**SLICE).stitch` (the first slice),
    - `Stitcher(**SLICE2).stitch` (bundle adjustment, wave correction,
      crop, block-gain exposure), with its stages timed between syncs,
+   - `Stitcher().stitch`, every default setting (adds the dp_color seams
+     and the multiband blend), with its stages timed between syncs, the
+     seam search and the blend inside them, the blend's memory plan and
+     the card's peak memory,
    - `pipeline.register_pair` on the first two views at MEDIUM size,
    - the matchers on float descriptors (128 wide, made from a seed):
      `FeatureMatcher.match_features` and `ops.match.match_pair`;
@@ -26,8 +30,8 @@
    floor: an empty kernel launched as often as the call launches kernels
    (counted by capturing one call, and held against what the wrapper's
    module states);
-5. profiles one `SLICE2` stitch (device busy share, the device operations
-   that take longest);
+5. profiles one `SLICE2` stitch and one default stitch (device busy
+   share, the device operations that take longest);
 6. checks the output: the cameras against the rendered ground truth, the
    pair's homography against the rendered one, and the card's panoramas
    against the CPU's on a small input;
@@ -638,6 +642,67 @@ class StageClock:
         return timed
 
 
+def default_stages(st, imgs, pano, Rs_true):
+    """The default path's stages once more, each fenced, with the seam
+    search (inside the LOW plan) and the FINAL blend (inside the
+    composite) timed between syncs; the blend's memory plan from
+    `compose._plan_blend` and the card's peak memory over the run."""
+    from stitching_tpu_torch import compose, engine
+
+    clock = StageClock()
+    plans = []
+    blend = engine.blend_stack
+
+    def timed_blend(stack, seams, kind, strength):
+        if kind == "no":               # the LOW crop plan's paste
+            return blend(stack, seams, kind, strength)
+        b, th, tw, c = stack.data.shape
+        plans.append((compose._plan_blend(stack.corners, stack.sizes, b,
+                                          kind, strength, th, tw), c))
+        return clock.wrap("blend_s", blend)(stack, seams, kind, strength)
+
+    st.seam_finder.find_stack = clock.wrap("seam_find_s",
+                                           st.seam_finder.find_stack)
+    engine.blend_stack = timed_blend
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    reg = engine.register(st, imgs)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    plan = engine.plan_composition(st, reg)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    again = engine.composite(st, reg, plan)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    engine.blend_stack = blend
+    del st.seam_finder.find_stack
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = t3 - t0
+    shares = {k: v / wall for k, v in clock.seconds.items()}
+    print(f"default stages (fenced): register_s={t1 - t0:.4f} "
+          f"plan_low_s={t2 - t1:.4f} composite_final_s={t3 - t2:.4f}; "
+          "inside them: "
+          + " ".join(f"{k}={v:.4f} ({shares[k]:.3f} of the stages' "
+                     f"{wall:.4f} s)" for k, v in clock.seconds.items()),
+          flush=True)
+    (p, c), = plans
+    acc = sum((p["ph"] >> lv) * (p["pw"] >> lv) * (c + 1) * 4
+              for lv in range(p["nb"] + 1))
+    win = sum((p["wh"] >> lv) * (p["ww"] >> lv) * (c + 1) * 4
+              for lv in range(p["nb"] + 1))
+    print(f"default blend plan: kind={p['kind']} nb={p['nb']} window "
+          f"{p['wh']}x{p['ww']} canvas {p['ph']}x{p['pw']} (panorama "
+          f"{p['dh']}x{p['dw']}); accumulators {acc / 1e6:.1f} MB, one "
+          f"window's Laplacian and weight pyramids {win / 1e6:.1f} MB; "
+          f"card peak allocated over the stages {peak:.3f} GB", flush=True)
+    if not np.array_equal(pano, again):
+        raise AssertionError("two runs of the default path gave different "
+                             "panoramas")
+    check_cameras("default", reg.cameras, Rs_true, 0.02)
+
+
 def counted_run(name, fn, wrappers, expect, recorders=()):
     """Drive one path: once to warm up, then with every kernel's launch
     count set to 0 (and the recorders emptied) just before and read just
@@ -856,12 +921,29 @@ def main():
     check_cameras("slice2", reg2.cameras, Rs_true, 0.02)
     profile_stitch(st2, imgs)
 
-    # ---- path 3: one pair of frames ----------------------------------
+    # ---- path 3: every default setting ---------------------------------
+    st3 = Stitcher()
+    pano3, wall3, (nn_calls3, _, bs_calls3) = drive(
+        "default", lambda: st3.stitch(imgs),
+        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+    mp3 = pano3.shape[0] * pano3.shape[1] / 1e6
+    print(f"default stitch: wall_s={wall3:.4f} pano={pano3.shape} "
+          f"mp={mp3:.3f} mp_per_s={mp3 / wall3:.3f} nonzero_share="
+          f"{float((pano3.max(-1) > 0).mean()):.4f}", flush=True)
+    # the seams and the blend change values, not the crop: slice 2's shape
+    if (pano3.dtype != np.uint8 or pano3.shape != pano2.shape
+            or np.array_equal(pano3, pano2)):
+        raise AssertionError(f"default panorama {pano3.dtype} {pano3.shape}: "
+                             f"not a blend of slice 2's {pano2.shape}")
+    default_stages(st3, imgs, pano3, Rs_true)
+    profile_stitch(st3, imgs)
+
+    # ---- path 4: one pair of frames ----------------------------------
     images_obj = Images.of(imgs[:2], st.medium_megapix, st.low_megapix,
                            st.final_megapix)
     med_sizes = images_obj.get_scaled_img_sizes(Images.Resolution.MEDIUM)
     gray, _ = engine._host_downscale(imgs[:2], med_sizes, med_sizes)
-    (H, n_inl), wall3, (_, rows_calls, _) = drive(
+    (H, n_inl), wall_pair, (_, rows_calls, _) = drive(
         "pair", lambda: pipeline.register_pair(gray[0], gray[1],
                                                nfeatures=500),
         {"two_nn_pairs": 0, "two_nn": 2, "bilinear_sample": 0})
@@ -880,7 +962,7 @@ def main():
     if int(n_inl) < 30 or not h_err < 3.0:
         raise AssertionError("the pair path's homography is wrong")
 
-    # ---- path 4: the matchers on float descriptors -------------------
+    # ---- path 5: the matchers on float descriptors -------------------
     feats = float_features(8, 500, dev)
     matcher = FeatureMatcher(match_conf=0.65)
 
@@ -914,7 +996,8 @@ def main():
 
     # ---- small input: the card against the CPU, same cameras ---------
     small, _ = rotation_set(3, (640, 480), 600.0, 0.5, dev)
-    for name, settings in (("slice1", SLICE), ("slice2", SLICE2)):
+    for name, settings in (("slice1", SLICE), ("slice2", SLICE2),
+                           ("default", {})):
         cpu = Stitcher(device="cpu", **settings)
         cpu_reg = engine.register(cpu, small)
         gpu_reg = engine.register(Stitcher(**settings), small)
@@ -936,11 +1019,14 @@ def main():
                                  "CPU's")
 
     # ---- every kernel against its plain version at the paths' inputs --
-    if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(bs_calls) != 2
-            or len(bs_calls2) != 2 or len(rows_calls) != 2
+    if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(nn_calls3) != 1
+            or len(bs_calls) != 2 or len(bs_calls2) != 2
+            or len(bs_calls3) != 2 or len(rows_calls) != 2
             or len(fnn_calls) != 1 or len(frows_calls) != 2):
         raise AssertionError("kernel calls were not recorded")
     equal_two_nn_pairs(nn_calls[0], "two_nn_pairs (binary), slice1's call")
+    equal_two_nn_pairs(nn_calls3[0], "two_nn_pairs (binary), the default "
+                       "path's call")
     results = {
         "two_nn_pairs (binary)": check_two_nn_pairs(
             nn_calls2[0], "two_nn_pairs (binary)"),
@@ -948,13 +1034,15 @@ def main():
             fnn_calls[0], "two_nn_pairs (float)"),
         "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
         "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
-        "bilinear_sample": check_sampler(bs_calls + bs_calls2),
+        "bilinear_sample": check_sampler(bs_calls + bs_calls2 + bs_calls3),
     }
-    paths = {"two_nn_pairs (binary)": ("two_nn_pairs", ("slice1", "slice2")),
+    paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
+                                       ("slice1", "slice2", "default")),
              "two_nn_pairs (float)": ("two_nn_pairs", ("float_match",)),
              "two_nn (binary)": ("two_nn", ("pair",)),
              "two_nn (float)": ("two_nn", ("float_match",)),
-             "bilinear_sample": ("bilinear_sample", ("slice1", "slice2"))}
+             "bilinear_sample": ("bilinear_sample",
+                                 ("slice1", "slice2", "default"))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",

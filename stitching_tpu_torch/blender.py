@@ -1,9 +1,10 @@
 """Blender component.
 
 Port of `stitching_tpu/blender.py`'s settings surface: choices multiband
-(default) / feather / no, and `blend_strength`. This slice implements "no"
-(the paste composite of `compose.blend_stack`); the others raise
-`NotImplementedError` (ROADMAP queue 1: multiband).
+(default) / feather / no, and `blend_strength`. The batched engine
+composites through `compose.blend_stack`, which resolves the kind per
+canvas (`blend_width = sqrt(canvas area) * strength / 100`; below 1 the
+paste composite, the reference rule).
 """
 
 from .errors import StitchingError
@@ -19,9 +20,5 @@ class Blender:
         if blender_type not in self.BLENDER_CHOICES:
             raise StitchingError(
                 "invalid blender type: " + str(blender_type))
-        if blender_type != "no":
-            raise NotImplementedError(
-                f"blender_type={blender_type!r} is not ported yet (ROADMAP "
-                "queue 1: multiband)")
         self.blender_type = blender_type
         self.blend_strength = blend_strength

@@ -1,4 +1,4 @@
-"""Batched compositing on the card: warp, seam-mask resize, paste blend.
+"""Batched compositing on the card: warp, crop, gains, seam masks, blend.
 
 Port of the parts of `stitching_tpu/compose.py` that the slices run. Every
 stage is one batched pass over a stacked tile batch that stays in device
@@ -11,8 +11,13 @@ memory:
 - `apply_gains_stack`: the blocks compensators' gain maps, bilinearly
   upsampled per pixel and multiplied in;
 - `resize_seam_masks_stack`: dilate + resize + mask-AND for all seam masks;
-- `blend_stack` for blender kind "no": a paste composite, tile after tile,
-  then one uint8 conversion. The panorama leaves the card once.
+- `blend_stack`: the multiband blend (each tile's reflect-bordered window,
+  its Laplacian pyramid times its seam mask's Gaussian pyramid added into
+  per-level canvases, then one normalise-and-collapse), the feather blend
+  (distance-transform weights) or the paste composite ("no"), tile after
+  tile in batch order, then one uint8 conversion. The panorama leaves the
+  card once. A canvas whose accumulators exceed the reference's 4 GB blend
+  budget raises: its strip and streamed routes are not ported.
 
 Tiles share one 64-bucketed (B, TH, TW, C) shape; true per-image corners
 and sizes ride along as host metadata.
@@ -24,7 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .ops.blend import distance_transform_l1
 from .ops.kernels.bilinear_sample import bilinear_sample
+from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
 from .ops.warp import PROJECTORS, warp_roi
 
 
@@ -353,15 +360,16 @@ def _shifted_tile_window(tile, seam, shift, size):
     return win, sm
 
 
-def _paste_feed_batched(tiles, seams, offs, shifts, sizes, ph, pw):
-    """Paste every tile's seam-owned pixels onto the canvas, in batch order
-    (later tiles overwrite earlier ones). The canvas updates in place."""
+def _paste_feed_batched(tiles, seams, offs, shifts, sizes, n, ph, pw):
+    """Paste the first n tiles' seam-owned pixels onto the canvas, in batch
+    order (later tiles overwrite earlier ones). The canvas updates in
+    place."""
     C = tiles.shape[-1]
     TH, TW = tiles.shape[1], tiles.shape[2]
     dev = tiles.device
     canvas = torch.zeros((ph, pw, C), dtype=torch.float32, device=dev)
     cmask = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
-    for i in range(tiles.shape[0]):
+    for i in range(n):
         win, sm = _shifted_tile_window(tiles[i], seams[i], shifts[i],
                                        sizes[i])
         inside = sm > 0
@@ -373,11 +381,21 @@ def _paste_feed_batched(tiles, seams, offs, shifts, sizes, ph, pw):
     return canvas, cmask
 
 
+# the multiband window's bucket (the reference's `_BUCKET`): the window
+# size fixes the clamped window offsets and the reflect context, so every
+# coarse band depends on it
+_MB_BUCKET = 128
+# accumulator bytes over which the reference leaves the batched blend for
+# X/Y strips or a streamed fetch (its default `STITCHING_TPU_BLEND_BUDGET`)
+_BLEND_BUDGET_BYTES = 4e9
+_EPS = 1e-5
+
+
 def _plan_blend(corners, sizes, b, blender_type, blend_strength, th, twd):
-    """Host geometry plan of the blend: blender-kind resolution
-    (blend_width < 1 -> "no", the reference rule), window/canvas shapes,
-    and per-image window offsets + in-window tile shifts. This slice
-    composites kind "no" only."""
+    """Host geometry plan of the blend: the blender kind (blend_width < 1
+    -> "no", the reference rule), band count, window and canvas shapes,
+    and each image's pyramid-aligned window offset and in-window tile
+    shift."""
     corners = np.asarray(corners)
     sizes = np.asarray(sizes)
     tl, (dw, dh) = _canvas_roi(corners, sizes)
@@ -387,17 +405,31 @@ def _plan_blend(corners, sizes, b, blender_type, blend_strength, th, twd):
 
     blend_width = np.sqrt(dh * dw) * blend_strength / 100.0
     kind = blender_type if blend_width >= 1 else "no"
-    if kind != "no":
-        raise NotImplementedError(
-            f"blender_type={kind!r} is not ported yet (ROADMAP queue 1: "
-            "multiband)")
-    m = 1
-    gap = 0
+
+    nb = 1
+    sharpness = 0.0
     offs = np.zeros((b, 2), np.int32)
     shifts = np.zeros((b, 2), np.int32)
-    wh, ww = th, twd
-    ph = max(_round_up(dh + gap + m), wh)
-    pw = max(_round_up(dw + gap + m), ww)
+    if kind == "multiband":
+        # the reference's num_bands (stitching/blender.py:32), int()
+        # truncating toward zero: 0 bands for blend_width in [1, 4)
+        nb = int(np.clip(int(np.log(blend_width) / np.log(2.0) - 1.0), 0, 8))
+        m = 1 << nb
+        gap = 3 * m
+        # the window is the tile plus the border-context gap on each side
+        wh = _round_up(th + 2 * gap + m, max(_MB_BUCKET, m))
+        ww = _round_up(twd + 2 * gap + m, max(_MB_BUCKET, m))
+    else:
+        m = 1
+        gap = 0
+        if kind == "feather":
+            sharpness = 1.0 / blend_width
+        wh, ww = th, twd
+    ph = max(_round_up(dh + gap + m, max(64, m)), wh)
+    pw = max(_round_up(dw + gap + m, max(64, m)), ww)
+    # window offsets clamp so that every window fits a canvas only slightly
+    # larger than the panorama (the window gathers its tile at a per-image
+    # shift, so the clamp is exact)
     for i in range(n):
         for a, (pd, wd) in enumerate(((pw, ww), (ph, wh))):
             start = max(corners[i, a] - gap, tl[a])
@@ -405,8 +437,85 @@ def _plan_blend(corners, sizes, b, blender_type, blend_strength, th, twd):
             aligned = min(aligned, tl[a] + pd - wd)
             offs[i, a] = aligned - tl[a]
             shifts[i, a] = corners[i, a] - aligned
-    return dict(kind=kind, wh=wh, ww=ww, ph=ph, pw=pw, tl=tl, dh=dh, dw=dw,
+    return dict(kind=kind, nb=nb, m=m, gap=gap, sharpness=sharpness,
+                wh=wh, ww=ww, ph=ph, pw=pw, tl=tl, dh=dh, dw=dw,
                 offs=offs, shifts=shifts, szs=szs, n=n)
+
+
+def _mb_window(tile, seam, shift, size, wh, ww):
+    """One tile's (wh, ww) multiband window: window pixel (r, s) is tile
+    pixel (r - shift_y, s - shift_x). Outside the true (w, h) extent the
+    image content reflects (the reference's BORDER_REFLECT feed) and the
+    seam reads 0."""
+    TH, TW = tile.shape[0], tile.shape[1]
+    dev = tile.device
+    w, h = int(size[0]), int(size[1])
+
+    def reflect(i, n):
+        i = torch.remainder(i, 2 * n)       # floor mod, as jnp.mod
+        return torch.where(i >= n, 2 * n - 1 - i, i)
+
+    ry = torch.arange(wh, device=dev) - int(shift[1])
+    rx = torch.arange(ww, device=dev) - int(shift[0])
+    win = tile[reflect(ry, h).clamp(0, TH - 1)][:, reflect(rx, w).clamp(
+        0, TW - 1)]
+    inside = ((ry >= 0) & (ry < h))[:, None] & ((rx >= 0) & (rx < w))[None]
+    sm = torch.where(inside, seam[ry.clamp(0, TH - 1)][:, rx.clamp(
+        0, TW - 1)], 0.0)
+    return win, sm
+
+
+def _mb_feed(tiles, seams, offs, shifts, sizes, n, nb, wh, ww, ph, pw):
+    """Feed the tiles into per-level multiband accumulators, one window
+    at a time in batch order (so the float sums are the reference's scan
+    and only one window's pyramids are live). Returns (band_acc, band_w),
+    level l of shape (ph >> l, pw >> l, C) and (..., 1)."""
+    C = tiles.shape[-1]
+    dev = tiles.device
+    band_acc = [torch.zeros((ph >> lv, pw >> lv, C), dtype=torch.float32,
+                            device=dev) for lv in range(nb + 1)]
+    band_w = [torch.zeros((ph >> lv, pw >> lv, 1), dtype=torch.float32,
+                          device=dev) for lv in range(nb + 1)]
+    # only the n real tiles: padded batch slots have empty seams
+    for i in range(n):
+        win, sm = _mb_window(tiles[i], seams[i], shifts[i], sizes[i], wh, ww)
+        laps = build_laplacian(win, nb)
+        wpyr = build_gaussian((sm > 0).to(torch.float32)[..., None], nb)
+        for lv in range(nb + 1):
+            yy, xx = int(offs[i, 1]) >> lv, int(offs[i, 0]) >> lv
+            bh, bw = laps[lv].shape[0], laps[lv].shape[1]
+            band_acc[lv][yy:yy + bh, xx:xx + bw] += laps[lv] * wpyr[lv]
+            band_w[lv][yy:yy + bh, xx:xx + bw] += wpyr[lv]
+    return band_acc, band_w
+
+
+def _mb_collapse(band_acc, band_w):
+    """Normalise each band by its weight and collapse the pyramid.
+    Returns the canvas (ph, pw, C) and the level-0 weight map (ph, pw)."""
+    laps = [a / (w + _EPS) for a, w in zip(band_acc, band_w)]
+    return collapse_laplacian(laps), band_w[0][..., 0]
+
+
+def _feather_feed(tiles, seams, offs, shifts, sizes, n, sharpness, ph, pw):
+    """Feather accumulators: each tile weighted by its L1 distance to the
+    edge of its seam mask times `sharpness`, clipped at 1, added in batch
+    order. Returns (acc (ph, pw, C), wsum (ph, pw))."""
+    C = tiles.shape[-1]
+    TH, TW = tiles.shape[1], tiles.shape[2]
+    dev = tiles.device
+    acc = torch.zeros((ph, pw, C), dtype=torch.float32, device=dev)
+    wsum = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
+    sharp = float(np.float32(sharpness))   # the reference's float32 scalar
+    for i in range(n):
+        win, sm = _shifted_tile_window(tiles[i], seams[i], shifts[i],
+                                       sizes[i])
+        m = (sm > 0).to(torch.float32)
+        wgt = (distance_transform_l1(m) * sharp).clamp_max(1.0)
+        wgt = torch.where(m > 0, wgt, 0.0)
+        oy, ox = int(offs[i, 1]), int(offs[i, 0])
+        acc[oy:oy + TH, ox:ox + TW] += win * wgt[..., None]
+        wsum[oy:oy + TH, ox:ox + TW] += wgt
+    return acc, wsum
 
 
 def _to_u8(img):
@@ -414,23 +523,42 @@ def _to_u8(img):
 
 
 def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength):
-    """Composite the stack into the panorama (blender kind "no").
+    """Composite the stack into the panorama.
 
     seam_masks: (B, TH, TW) tensor (from `resize_seam_masks_stack`) or None
-    (use the stack's warp masks). Returns (pano_u8 (dh, dw, C), mask_u8
-    (dh, dw)) on the stack's device; `fetch_image` copies to the host.
+    (use the stack's warp masks). The blender kind comes from
+    `_plan_blend`: "multiband", "feather" or the paste composite "no".
+    Returns (pano_u8 (dh, dw, C), mask_u8 (dh, dw)) on the stack's device;
+    `fetch_image` copies to the host.
     """
     if seam_masks is None:
         seam_masks = stack.masks
     b = stack.data.shape[0]
+    C = stack.data.shape[-1]
     th, twd = int(stack.data.shape[1]), int(stack.data.shape[2])
     p = _plan_blend(stack.corners, stack.sizes, b, blender_type,
                     blend_strength, th, twd)
-    canvas, cmask = _paste_feed_batched(
-        stack.data, seam_masks, p["offs"], p["shifts"], p["szs"],
-        p["ph"], p["pw"])
+    kind, ph, pw, n = p["kind"], p["ph"], p["pw"], p["n"]
+    # the reference's estimate: C + 1 float32 planes, with the coarser
+    # levels and the working copies
+    acc_bytes = ph * pw * (C + 1) * 4 * 8 // 3
+    if acc_bytes > _BLEND_BUDGET_BYTES:
+        raise NotImplementedError(
+            f"a {pw} x {ph} blend canvas needs {acc_bytes / 1e9:.1f} GB of "
+            f"accumulators, over the {_BLEND_BUDGET_BYTES / 1e9:.0f} GB "
+            "blend budget: not ported yet (ROADMAP queue 1: streamed and "
+            "strip composite)")
+    args = (stack.data, seam_masks, p["offs"], p["shifts"], p["szs"], n)
+    if kind == "multiband":
+        canvas, wmap = _mb_collapse(*_mb_feed(
+            *args, p["nb"], p["wh"], p["ww"], ph, pw))
+    elif kind == "feather":
+        acc, wmap = _feather_feed(*args, p["sharpness"], ph, pw)
+        canvas = acc / wmap[..., None].clamp_min(_EPS)
+    else:
+        canvas, wmap = _paste_feed_batched(*args, ph, pw)
     dh, dw = p["dh"], p["dw"]
-    return _to_u8(canvas[:dh, :dw]), (cmask[:dh, :dw] > 1e-5).to(
+    return _to_u8(canvas[:dh, :dw]), (wmap[:dh, :dw] > _EPS).to(
         torch.uint8) * 255
 
 

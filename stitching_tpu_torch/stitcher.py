@@ -6,9 +6,13 @@ resolution and nfeatures forwarding, and the MEDIUM / LOW / FINAL
 resolution semantics. `device=` takes the place of the JAX package's
 `mesh=`: the pipeline runs on that device, the card by default.
 
+`Stitcher()` runs with every default setting: ORB, homography matching,
+ray bundle adjustment, horizontal wave correction, the spherical warp, the
+LIR crop, gain_blocks exposure, dp_color seams and the multiband blend.
+`SLICE` and `SLICE2` are two smaller configurations that switch stages off.
 Settings the port does not implement yet raise `NotImplementedError` from
 the component that owns them, naming the setting and the ROADMAP item that
-ports it. `SLICE` and `SLICE2` are the configurations that run today.
+ports it.
 """
 
 import torch
@@ -35,7 +39,7 @@ SLICE = dict(crop=False, adjuster="no", wave_correct_kind="no",
              compensator="no", finder="no", blender_type="no")
 # The second slice: every default (ray bundle adjustment, horizontal wave
 # correction, the LIR crop, gain_blocks exposure) except the seam finder and
-# the blender, which are not ported yet.
+# the blender, which paste the warp masks.
 SLICE2 = dict(finder="no", blender_type="no")
 
 

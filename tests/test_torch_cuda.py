@@ -498,3 +498,103 @@ def test_two_nn_cuda_on_another_stream(cuda_device, is_binary):
         assert_two_nn_close([g.cpu() for g in got], [r.cpu() for r in ref],
                             q, t)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Seams and blends on the card (plain PyTorch ops) against the same code on
+# the CPU, which `test_torch_seam.py`, `test_torch_pyramid.py` and
+# `test_torch_blend.py` hold against the JAX package
+# ---------------------------------------------------------------------------
+
+def _seam_costs(kind, P=4, h=90, w=70, seed=7):
+    rng = np.random.RandomState(seed)
+    if kind == "ties":
+        # three distinct values: tied moves at most steps, tied ends
+        cost = rng.randint(0, 3, (P, h, w)).astype(np.float32)
+        cost[1] = 0.0
+        cost[2, :, ::2] = 1.0
+    else:
+        cost = (rng.rand(P, h, w) * 100).astype(np.float32)
+        cost[:, :, 50:] += 1e4
+        cost[:, 80:] = 0.0
+    return cost
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "random"])
+def test_dp_seam_scan_cuda_equals_cpu(cuda_device, kind):
+    """The DP seam scan takes the first of tied minima (the reference's
+    argmin rule) on the card as on the CPU."""
+    from stitching_tpu_torch.ops.seam import _dp_seam_kernel
+
+    cost = torch.tensor(_seam_costs(kind))
+    got = _dp_seam_kernel(cost.to(cuda_device)).cpu()
+    assert torch.equal(got, _dp_seam_kernel(cost))
+    if kind == "ties":
+        # an all-zero cost: every move ties, so the seam is column 0
+        assert bool((got[1] == 0).all())
+
+
+def _seam_stack(seed=0):
+    """Three 72x60 tiles at (0, 0), (40, 8), (18, 30): vertical and
+    transposed seams and a three-way overlap."""
+    rng = np.random.RandomState(seed)
+    data = np.zeros((3, 128, 128, 3), np.float32)
+    masks = np.zeros((3, 128, 128), np.float32)
+    data[:, :60, :72] = rng.rand(3, 60, 72, 3) * 255
+    masks[:, :60, :72] = 255
+    return (data, masks, np.asarray([(0, 0), (40, 8), (18, 30)]),
+            np.asarray([(72, 60)] * 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finder", ["dp_color", "dp_colorgrad", "voronoi"])
+def test_seam_finders_cuda_equal_cpu(cuda_device, finder):
+    from stitching_tpu_torch.compose import TileStack
+    from stitching_tpu_torch.seam_finder import SeamFinder
+
+    data, masks, corners, sizes = _seam_stack()
+    cpu = TileStack(torch.tensor(data), torch.tensor(masks), corners, sizes)
+    gpu = TileStack(cpu.data.to(cuda_device), cpu.masks.to(cuda_device),
+                    corners, sizes)
+    got = SeamFinder(finder).find_stack(gpu)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), SeamFinder(finder).find_stack(cpu))
+
+
+@pytest.mark.cuda
+def test_distance_transform_and_pyramid_cuda_match_cpu(cuda_device):
+    from stitching_tpu_torch.ops.blend import distance_transform_l1
+    from stitching_tpu_torch.ops.pyramid import (build_laplacian,
+                                                 collapse_laplacian)
+
+    rng = np.random.RandomState(2)
+    masks = torch.tensor(rng.rand(3, 96, 160) > 0.02)
+    masks[1] = True
+    assert torch.equal(distance_transform_l1(masks.to(cuda_device)).cpu(),
+                       distance_transform_l1(masks))
+    img = torch.tensor((rng.rand(2, 128, 192, 3) * 255).astype(np.float32))
+    laps_gpu = build_laplacian(img.to(cuda_device), 4)
+    for a, b in zip(laps_gpu, build_laplacian(img, 4)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+    out = collapse_laplacian(laps_gpu).cpu()
+    assert float((out - img).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,strength", [("multiband", 5),
+                                           ("multiband", 0.2),
+                                           ("feather", 5)])
+def test_blend_stack_cuda_close_to_cpu(cuda_device, kind, strength):
+    from stitching_tpu_torch.compose import TileStack, blend_stack
+
+    data, masks, corners, sizes = _seam_stack(1)
+    cpu = TileStack(torch.tensor(data), torch.tensor(masks), corners, sizes)
+    gpu = TileStack(cpu.data.to(cuda_device), cpu.masks.to(cuda_device),
+                    corners, sizes)
+    pano, mask = blend_stack(gpu, None, kind, strength)
+    ref, ref_mask = blend_stack(cpu, None, kind, strength)
+    assert pano.shape == ref.shape and torch.equal(mask.cpu(), ref_mask)
+    diff = (pano.cpu().to(torch.int16) - ref.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.999

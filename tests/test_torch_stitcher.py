@@ -21,7 +21,7 @@ import stitching_tpu_torch
 from fixtures import rotation_set
 from stitching_tpu import engine as jax_engine
 from stitching_tpu_torch import (SLICE, SLICE2, Stitcher, StitchingError,
-                                 convert)
+                                 compose, convert)
 from stitching_tpu_torch import engine
 
 # The suite's workers run side by side on a few cores: keep each one's
@@ -141,13 +141,8 @@ def test_unknown_setting_raises():
     ("adjuster", "affine", "other settings"),
     ("compensator", "gain", "other settings"),
     ("compensator", "channel", "other settings"),
-    ("finder", "dp_color", "seams"),
-    ("finder", "dp_colorgrad", "seams"),
-    ("finder", "gc_colorgrad", "seams"),
-    ("finder", "gc_color", "seams"),
-    ("finder", "voronoi", "seams"),
-    ("blender_type", "multiband", "multiband"),
-    ("blender_type", "feather", "multiband"),
+    ("finder", "gc_colorgrad", "seams (graph cut)"),
+    ("finder", "gc_color", "seams (graph cut)"),
     ("detector", "sift", "SIFT/BRISK/AKAZE"),
     ("detector", "akaze", "SIFT/BRISK/AKAZE"),
     ("detector", "brisk", "SIFT/BRISK/AKAZE"),
@@ -163,16 +158,39 @@ def test_unported_setting_raises_not_implemented(setting, value, item):
     assert "ROADMAP" in str(e.value)
 
 
-def test_default_settings_not_ported_yet():
-    """Only the seam finder and the blender stand between `SLICE2` and the
-    defaults."""
-    with pytest.raises(NotImplementedError):
-        Stitcher(device="cpu")
-    for missing in ("finder", "blender_type"):
-        partial = {k: v for k, v in SLICE2.items() if k != missing}
-        with pytest.raises(NotImplementedError) as e:
-            Stitcher(device="cpu", **partial)
-        assert missing in str(e.value)
+def test_default_settings_construct():
+    """Every default setting is ported: `Stitcher()` constructs and reports
+    the reference's defaults, dp_color seams and the multiband blend
+    among them."""
+    st = Stitcher(device="cpu")
+    assert st.settings == stitching_tpu.Stitcher.DEFAULT_SETTINGS
+    assert st.seam_finder.finder_name == "dp_color"
+    assert st.blender.blender_type == "multiband"
+    assert st.blender.blend_strength == 5
+
+
+@pytest.mark.parametrize("setting,value", [
+    ("finder", "dp_color"), ("finder", "dp_colorgrad"),
+    ("finder", "voronoi"), ("blender_type", "multiband"),
+    ("blender_type", "feather"),
+])
+def test_ported_setting_constructs(setting, value):
+    st = Stitcher(device="cpu", **{**SLICE, setting: value})
+    assert st.settings[setting] == value
+
+
+def test_canvas_over_the_blend_budget_raises():
+    """Two small tiles 12000 x 9000 pixels apart need 4.7 GB of multiband
+    accumulators, over the reference's 4 GB budget, where it blends in
+    strips: the port raises for ROADMAP queue 1 item 7 before it allocates
+    anything."""
+    stack = compose.TileStack(torch.zeros((2, 64, 64, 3)),
+                              torch.full((2, 64, 64), 255.0),
+                              np.asarray([(0, 0), (12000, 9000)]),
+                              np.asarray([(64, 64), (64, 64)]))
+    with pytest.raises(NotImplementedError) as e:
+        compose.blend_stack(stack, None, "multiband", 5)
+    assert "ROADMAP queue 1: streamed and strip composite" in str(e.value)
 
 
 @pytest.mark.parametrize("setting,value", [
