@@ -19,6 +19,13 @@
      and the multiband blend), with its stages timed between syncs, the
      seam search and the blend inside them, the blend's memory plan and
      the card's peak memory,
+   - `Stitcher(finder="gc_color").stitch` (the graph-cut seams), staged
+     the same way, with each graph-cut level's iterations, global
+     relabels, host syncs and seconds,
+   - `Stitcher(warper_type="cylindrical").stitch` (another surface),
+   - `AffineStitcher().stitch` on a scan: 8 translated 1600x1200 crops of
+     one textured scene, each crop's recovered offset from its neighbour
+     held to 1 px of the truth,
    - `pipeline.register_pair` on the first two views at MEDIUM size,
    - the matchers on float descriptors (128 wide, made from a seed):
      `FeatureMatcher.match_features` and `ops.match.match_pair`;
@@ -34,12 +41,16 @@
    share, the device operations that take longest);
 6. checks the output: the cameras against the rendered ground truth, the
    pair's homography against the rendered one, and the card's panoramas
-   against the CPU's on a small input;
+   against the CPU's on a small input (3 views of 640x480) with the same
+   cameras: both slices, the defaults, every other surface, the gain and
+   channel compensators, both graph-cut finders and `AffineStitcher` on a
+   small scan;
 7. prints the kernels line, the card line and, last, the result line.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
 
+import copy
 import ctypes
 import json
 import subprocess
@@ -72,13 +83,13 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def textured_scene(h=1000, w=1800, seed=0):
+def textured_scene(h=1000, w=1800, seed=0, blocks=500):
     """`tests/fixtures.textured_scene` without OpenCV: corner-rich blocks,
     two low-frequency gradients and a 5-tap Gaussian blur (sigma 1.2)."""
     rng = np.random.RandomState(seed)
     img = np.zeros((h, w, 3), np.float32)
     img[:] = rng.uniform(40, 80, 3)
-    for _ in range(500):
+    for _ in range(blocks):
         x, y = rng.randint(0, w - 10), rng.randint(0, h - 10)
         bw, bh = rng.randint(4, 60), rng.randint(4, 60)
         color = rng.uniform(0, 255, 3)
@@ -129,6 +140,21 @@ def rotation_set(n, size, focal, max_angle, device):
         imgs.append(out.round().clamp(0, 255).to(torch.uint8).cpu().numpy())
         Rs.append(R)
     return imgs, Rs
+
+
+def scan_set(n, size, seed=0):
+    """n translated crops of one textured scene, as
+    `tests/fixtures.affine_set` makes them: each 55% of the width right of
+    the last, every other one 12 px lower (a flatbed or drone scan), the
+    scene as dense in blocks as the rotation set's. Returns (uint8 BGR
+    crops, their (x, y) offsets in the scene)."""
+    w, h = size
+    step = int(w * 0.55)
+    sh, sw = h + 80, step * (n - 1) + w + 80
+    scene = textured_scene(sh, sw, seed, blocks=int(500 * sh * sw / 1.8e6))
+    offsets = [(40 + i * step, 40 + (i % 2) * 12) for i in range(n)]
+    return ([np.ascontiguousarray(scene[y:y + h, x:x + w])
+             for x, y in offsets], offsets)
 
 
 def time_ms(fn, iters):
@@ -398,7 +424,9 @@ def check_two_nn(calls, what):
     return dict(max_abs_err=err, **bound, **times)
 
 
-def check_sampler(calls):
+def check_sampler(calls, timed):
+    """`bilinear_sample` against its plain version on every recorded call;
+    timed at the largest of the `timed` calls."""
     from stitching_tpu_torch.ops.kernels.bilinear_sample import (
         bilinear_sample, bilinear_sample_plain)
 
@@ -415,7 +443,7 @@ def check_sampler(calls):
         print(f"bilinear_sample data {tuple(data.shape)} coords "
               f"{tuple(sxc.shape)}: max_abs_err={err}", flush=True)
     # time at the FINAL call, the larger of the two
-    (data, sxc, syc, care), _ = max(calls, key=lambda c: c[0][0].numel())
+    (data, sxc, syc, care), _ = max(timed, key=lambda c: c[0][0].numel())
     B, H, W, C = data.shape
     th, tw = sxc.shape[1:]
     # library yardstick: one grid_sample on the same samples (NCHW input
@@ -607,13 +635,13 @@ def profile_stitch(st, imgs):
               f"{e.key[:100]}", flush=True)
 
 
-def composite_with(st, imgs, cameras):
-    """A slice's compositing with the given cameras (registration runs
-    for its image bookkeeping, then its cameras are replaced). Returns the
-    panorama and the plan's crop rects."""
+def composite_reg(st, reg, cameras):
+    """Compositing with the given cameras on a copy of a registration made
+    on the stitcher's device. Returns the panorama and the plan's crop
+    rects."""
     from stitching_tpu_torch import engine
 
-    reg = engine.register(st, imgs)
+    reg = copy.copy(reg)
     reg.cameras = [c.copy() for c in cameras]
     st.warper.set_scale(reg.cameras)
     reg.scale = st.warper.scale
@@ -642,16 +670,35 @@ class StageClock:
         return timed
 
 
-def default_stages(st, imgs, pano, Rs_true):
-    """The default path's stages once more, each fenced, with the seam
-    search (inside the LOW plan) and the FINAL blend (inside the
-    composite) timed between syncs; the blend's memory plan from
-    `compose._plan_blend` and the card's peak memory over the run."""
+class CutRecorder:
+    """Stands in for `ops.graphcut.grid_min_cut` and keeps, for each call,
+    the grid shape, the loop's stats (iterations, global relabels, host
+    reads) and its seconds (the call ends in a host read)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.levels = []
+
+    def __call__(self, cap_dir, *args, **kwargs):
+        t0 = time.time()
+        out = self.fn(cap_dir, *args, **kwargs)
+        self.levels.append((tuple(cap_dir.shape), out[1], time.time() - t0))
+        return out
+
+
+def path_stages(name, st, imgs, pano):
+    """A path's stages once more, each fenced, with the seam search
+    (inside the LOW plan) and the FINAL blend (inside the composite) timed
+    between syncs, the graph cut's levels where it runs, the blend's
+    memory plan from `compose._plan_blend` and the card's peak memory over
+    the run. Returns the registration."""
     from stitching_tpu_torch import compose, engine
+    from stitching_tpu_torch.ops import graphcut
 
     clock = StageClock()
     plans = []
     blend = engine.blend_stack
+    cut = graphcut.grid_min_cut
 
     def timed_blend(stack, seams, kind, strength):
         if kind == "no":               # the LOW crop plan's paste
@@ -664,6 +711,7 @@ def default_stages(st, imgs, pano, Rs_true):
     st.seam_finder.find_stack = clock.wrap("seam_find_s",
                                            st.seam_finder.find_stack)
     engine.blend_stack = timed_blend
+    graphcut.grid_min_cut = levels = CutRecorder(cut)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -677,30 +725,40 @@ def default_stages(st, imgs, pano, Rs_true):
     torch.cuda.synchronize()
     t3 = time.time()
     engine.blend_stack = blend
+    graphcut.grid_min_cut = cut
     del st.seam_finder.find_stack
     peak = torch.cuda.max_memory_allocated() / 1e9
     wall = t3 - t0
     shares = {k: v / wall for k, v in clock.seconds.items()}
-    print(f"default stages (fenced): register_s={t1 - t0:.4f} "
+    print(f"{name} stages (fenced): register_s={t1 - t0:.4f} "
           f"plan_low_s={t2 - t1:.4f} composite_final_s={t3 - t2:.4f}; "
           "inside them: "
           + " ".join(f"{k}={v:.4f} ({shares[k]:.3f} of the stages' "
                      f"{wall:.4f} s)" for k, v in clock.seconds.items()),
           flush=True)
+    for shape, stats, sec in levels.levels:
+        print(f"{name} graph cut level {shape} (pairs, h, w): "
+              f"iterations={stats['iterations']} relabels="
+              f"{stats['relabels']} host_syncs={stats['host_reads']} "
+              f"seconds={sec:.4f}", flush=True)
+    if levels.levels:
+        print(f"{name} graph cut: {len(levels.levels)} levels, host_syncs="
+              f"{sum(lv[1]['host_reads'] for lv in levels.levels)}",
+              flush=True)
     (p, c), = plans
     acc = sum((p["ph"] >> lv) * (p["pw"] >> lv) * (c + 1) * 4
               for lv in range(p["nb"] + 1))
     win = sum((p["wh"] >> lv) * (p["ww"] >> lv) * (c + 1) * 4
               for lv in range(p["nb"] + 1))
-    print(f"default blend plan: kind={p['kind']} nb={p['nb']} window "
+    print(f"{name} blend plan: kind={p['kind']} nb={p['nb']} window "
           f"{p['wh']}x{p['ww']} canvas {p['ph']}x{p['pw']} (panorama "
           f"{p['dh']}x{p['dw']}); accumulators {acc / 1e6:.1f} MB, one "
           f"window's Laplacian and weight pyramids {win / 1e6:.1f} MB; "
           f"card peak allocated over the stages {peak:.3f} GB", flush=True)
     if not np.array_equal(pano, again):
-        raise AssertionError("two runs of the default path gave different "
+        raise AssertionError(f"two runs of the {name} path gave different "
                              "panoramas")
-    check_cameras("default", reg.cameras, Rs_true, 0.02)
+    return reg
 
 
 def counted_run(name, fn, wrappers, expect, recorders=()):
@@ -747,6 +805,50 @@ def check_cameras(name, cameras, Rs_true, focal_tol):
     return focals[0], abs(yaw[-1] - yaw[0]), medium_scale
 
 
+def check_offsets(cameras, offsets, shape):
+    """The affine cameras against the scan's truth. Each camera maps the
+    panorama (the tree center's frame) to its crop at MEDIUM scale; the
+    crop's centre, mapped back, is where the registration put the crop
+    (up to a shift common to all: the panorama's frame is free).
+    Each crop's offset from the one before it must be within 1 px (full
+    resolution) of the truth. Only neighbours overlap, so the spanning
+    tree is a chain and those errors add up along it (the reference's
+    estimate does the same): a crop's position may be off by 1 px for each
+    link between it and the tree center. The linear parts must stay within
+    2e-3 of the identity (no turn, no zoom), and the cropped panorama must
+    span the crops' common rows and their union's columns."""
+    ms = (0.6e6 / (1600 * 1200)) ** 0.5
+    if len(cameras) != len(offsets):
+        raise AssertionError("affine: an image of the scan was dropped")
+    Rs = [np.asarray(c.R, np.float64) for c in cameras]
+    lin = max(float(np.abs(R[:2, :2] - np.eye(2)).max()) for R in Rs)
+    c = int(np.argmin([np.abs(R[:2, 2]).sum() for R in Rs]))  # t ~ 0
+    ctr = np.array([800.0, 600.0]) * ms
+    got = np.asarray([np.linalg.solve(R[:2, :2], ctr - R[:2, 2]) / ms
+                      for R in Rs])
+    true = np.asarray(offsets, np.float64)
+    step_err = np.abs(np.diff(got, axis=0) - np.diff(true, axis=0)).max(1)
+    # the adjuster moves every camera, the center's too: positions are
+    # read relative to the center crop's
+    drift = np.abs((got - got[c]) - (true - true[c])).max(1)
+    hops = np.abs(np.arange(len(Rs)) - c)
+    print(f"affine cameras: center {c}; each crop's offset from the one "
+          f"before within {step_err.max():.3f} px of the truth "
+          f"({np.round(step_err, 3).tolist()}); positions off by "
+          f"{np.round(drift, 3).tolist()} px, 0 to {hops.max()} links from "
+          f"the center; linear parts within {lin:.2e} of the identity",
+          flush=True)
+    xs = [o[0] for o in offsets]
+    ys = [o[1] for o in offsets]
+    want_w = max(xs) + 1600 - min(xs)
+    want_h = 1200 - (max(ys) - min(ys))
+    if (step_err.max() > 1.0 or (drift > hops + 1e-9).any() or lin > 2e-3
+            or abs(shape[1] - want_w) > 0.01 * want_w
+            or abs(shape[0] - want_h) > 0.01 * want_h):
+        raise AssertionError(f"affine: panorama {shape} (want about "
+                             f"{want_h} x {want_w}) or crop offsets wrong")
+
+
 def float_features(n_images, n, device, seed=0):
     """Synthetic float features, 128 wide like SIFT's: image k + 1 holds
     noisy copies of 300 of image k's rows, its keypoints shifted by
@@ -782,8 +884,9 @@ def main():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 2
-    from stitching_tpu_torch import (SLICE, SLICE2, Stitcher, compose, engine,
-                                     pipeline)
+    from stitching_tpu_torch import (SLICE, SLICE2, AffineStitcher, Stitcher,
+                                     compose, engine, pipeline)
+    from stitching_tpu_torch.ops.warp import WARP_TYPES
     from stitching_tpu_torch.feature_matcher import FeatureMatcher
     from stitching_tpu_torch.images import Images
     from stitching_tpu_torch.ops import kernels, match
@@ -935,10 +1038,60 @@ def main():
             or np.array_equal(pano3, pano2)):
         raise AssertionError(f"default panorama {pano3.dtype} {pano3.shape}: "
                              f"not a blend of slice 2's {pano2.shape}")
-    default_stages(st3, imgs, pano3, Rs_true)
+    reg3 = path_stages("default", st3, imgs, pano3)
+    check_cameras("default", reg3.cameras, Rs_true, 0.02)
     profile_stitch(st3, imgs)
 
-    # ---- path 4: one pair of frames ----------------------------------
+    # ---- path 4: graph-cut seams -------------------------------------
+    st_gc = Stitcher(finder="gc_color")
+    pano_gc, wall_gc, (nn_gc, _, bs_gc) = drive(
+        "gc", lambda: st_gc.stitch(imgs),
+        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+    mp_gc = pano_gc.shape[0] * pano_gc.shape[1] / 1e6
+    print(f"gc stitch: wall_s={wall_gc:.4f} pano={pano_gc.shape} "
+          f"mp={mp_gc:.3f} mp_per_s={mp_gc / wall_gc:.3f}", flush=True)
+    # the seams move values, not the crop: the default path's shape
+    if pano_gc.dtype != np.uint8 or pano_gc.shape != pano3.shape:
+        raise AssertionError(f"gc panorama {pano_gc.dtype} {pano_gc.shape}: "
+                             f"not the default's {pano3.shape}")
+    reg_gc = path_stages("gc", st_gc, imgs, pano_gc)
+    check_cameras("gc", reg_gc.cameras, Rs_true, 0.02)
+    profile_stitch(st_gc, imgs)
+
+    # ---- path 5: another surface -------------------------------------
+    st_cyl = Stitcher(warper_type="cylindrical")
+    pano_cyl, wall_cyl, (nn_cyl, _, bs_cyl) = drive(
+        "surfaces", lambda: st_cyl.stitch(imgs),
+        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+    mp_cyl = pano_cyl.shape[0] * pano_cyl.shape[1] / 1e6
+    print(f"surfaces (cylindrical) stitch: wall_s={wall_cyl:.4f} "
+          f"pano={pano_cyl.shape} mp={mp_cyl:.3f} mp_per_s="
+          f"{mp_cyl / wall_cyl:.3f}", flush=True)
+    # the cylinder keeps the sphere's width (the same yaw span at the same
+    # scale) and its straight vertical edges let the crop keep more height
+    if (pano_cyl.dtype != np.uint8
+            or abs(pano_cyl.shape[1] - pano3.shape[1]) > 0.02 * pano3.shape[1]
+            or pano_cyl.shape[0] < 0.9 * pano3.shape[0]):
+        raise AssertionError(f"cylindrical panorama {pano_cyl.shape} against "
+                             f"the spherical {pano3.shape}")
+    reg_cyl = path_stages("surfaces", st_cyl, imgs, pano_cyl)
+    check_cameras("surfaces", reg_cyl.cameras, Rs_true, 0.02)
+
+    # ---- path 6: AffineStitcher on a scan ----------------------------
+    scan, offsets = scan_set(8, (1600, 1200))
+    print(f"scan set: {len(scan)} crops of {scan[0].shape}", flush=True)
+    st_af = AffineStitcher()
+    pano_af, wall_af, (nn_af, _, bs_af) = drive(
+        "affine", lambda: st_af.stitch(scan),
+        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+    mp_af = pano_af.shape[0] * pano_af.shape[1] / 1e6
+    print(f"affine stitch: wall_s={wall_af:.4f} pano={pano_af.shape} "
+          f"mp={mp_af:.3f} mp_per_s={mp_af / wall_af:.3f} nonzero_share="
+          f"{float((pano_af.max(-1) > 0).mean()):.4f}", flush=True)
+    reg_af = path_stages("affine", st_af, scan, pano_af)
+    check_offsets(reg_af.cameras, offsets, pano_af.shape)
+
+    # ---- path 7: one pair of frames ----------------------------------
     images_obj = Images.of(imgs[:2], st.medium_megapix, st.low_megapix,
                            st.final_megapix)
     med_sizes = images_obj.get_scaled_img_sizes(Images.Resolution.MEDIUM)
@@ -962,7 +1115,7 @@ def main():
     if int(n_inl) < 30 or not h_err < 3.0:
         raise AssertionError("the pair path's homography is wrong")
 
-    # ---- path 5: the matchers on float descriptors -------------------
+    # ---- path 8: the matchers on float descriptors -------------------
     feats = float_features(8, 500, dev)
     matcher = FeatureMatcher(match_conf=0.65)
 
@@ -996,15 +1149,34 @@ def main():
 
     # ---- small input: the card against the CPU, same cameras ---------
     small, _ = rotation_set(3, (640, 480), 600.0, 0.5, dev)
-    for name, settings in (("slice1", SLICE), ("slice2", SLICE2),
-                           ("default", {})):
-        cpu = Stitcher(device="cpu", **settings)
-        cpu_reg = engine.register(cpu, small)
-        gpu_reg = engine.register(Stitcher(**settings), small)
+    small_scan, _ = scan_set(3, (640, 480))
+    settings = ([("slice1", SLICE), ("slice2", SLICE2), ("default", {})]
+                + [(f"warper_type={w}", dict(warper_type=w))
+                   for w in WARP_TYPES if w not in ("spherical", "affine")]
+                + [("compensator=gain", dict(compensator="gain")),
+                   ("compensator=channel", dict(compensator="channel")),
+                   ("finder=gc_color", dict(finder="gc_color")),
+                   ("finder=gc_colorgrad", dict(finder="gc_colorgrad"))])
+    regs = {}
+    for name, settings_of, make, inputs in (
+            [(n, s_, Stitcher, small) for n, s_ in settings]
+            + [("AffineStitcher", {}, AffineStitcher, small_scan)]):
+        # one registration per registration setting and device; each
+        # setting composites the CPU's cameras on both
+        key = (make, tuple(sorted((k, str(v)) for k, v in settings_of.items()
+                                  if k in ("crop", "adjuster",
+                                           "wave_correct_kind"))))
+        if key not in regs:
+            cpu_reg = engine.register(make(device="cpu", **settings_of),
+                                      inputs)
+            gpu_reg = engine.register(make(**settings_of), inputs)
+            regs[key] = (cpu_reg, gpu_reg)
+        cpu_reg, gpu_reg = regs[key]
         f_cpu, f_gpu = cpu_reg.cameras[0].focal, gpu_reg.cameras[0].focal
-        pano_cpu, rects_cpu = composite_with(cpu, small, cpu_reg.cameras)
-        pano_gpu, rects_gpu = composite_with(Stitcher(**settings), small,
-                                             cpu_reg.cameras)
+        pano_cpu, rects_cpu = composite_reg(make(device="cpu", **settings_of),
+                                            cpu_reg, cpu_reg.cameras)
+        pano_gpu, rects_gpu = composite_reg(make(**settings_of), gpu_reg,
+                                            cpu_reg.cameras)
         if pano_cpu.shape != pano_gpu.shape or rects_cpu != rects_gpu:
             raise AssertionError(
                 f"small input, {name}: {pano_gpu.shape} {rects_gpu} on the "
@@ -1014,19 +1186,26 @@ def main():
         print(f"small input, {name}: focal card {f_gpu:.3f} cpu {f_cpu:.3f}; "
               f"panorama {pano_gpu.shape} crop rects {rects_gpu} within 1 "
               f"LSB of the CPU's at {near:.6f} of values", flush=True)
-        if abs(f_gpu - f_cpu) > 0.02 * f_cpu or near < 0.999:
+        if abs(f_gpu - f_cpu) > 0.02 * abs(f_cpu) or near < 0.999:
             raise AssertionError(f"the card's {name} disagrees with the "
                                  "CPU's")
 
     # ---- every kernel against its plain version at the paths' inputs --
+    new_nn = {"gc": nn_gc, "surfaces": nn_cyl, "affine": nn_af}
+    new_bs = bs_gc + bs_cyl + bs_af
     if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(nn_calls3) != 1
             or len(bs_calls) != 2 or len(bs_calls2) != 2
             or len(bs_calls3) != 2 or len(rows_calls) != 2
-            or len(fnn_calls) != 1 or len(frows_calls) != 2):
+            or len(fnn_calls) != 1 or len(frows_calls) != 2
+            or any(len(c) != 1 for c in new_nn.values())
+            or len(new_bs) != 6):
         raise AssertionError("kernel calls were not recorded")
     equal_two_nn_pairs(nn_calls[0], "two_nn_pairs (binary), slice1's call")
     equal_two_nn_pairs(nn_calls3[0], "two_nn_pairs (binary), the default "
                        "path's call")
+    for name, calls in new_nn.items():
+        equal_two_nn_pairs(calls[0], f"two_nn_pairs (binary), the {name} "
+                           "path's call")
     results = {
         "two_nn_pairs (binary)": check_two_nn_pairs(
             nn_calls2[0], "two_nn_pairs (binary)"),
@@ -1034,15 +1213,16 @@ def main():
             fnn_calls[0], "two_nn_pairs (float)"),
         "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
         "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
-        "bilinear_sample": check_sampler(bs_calls + bs_calls2 + bs_calls3),
+        "bilinear_sample": check_sampler(
+            bs_calls + bs_calls2 + bs_calls3 + new_bs,
+            bs_calls + bs_calls2 + bs_calls3),
     }
-    paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
-                                       ("slice1", "slice2", "default")),
+    stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
+    paths = {"two_nn_pairs (binary)": ("two_nn_pairs", stitches),
              "two_nn_pairs (float)": ("two_nn_pairs", ("float_match",)),
              "two_nn (binary)": ("two_nn", ("pair",)),
              "two_nn (float)": ("two_nn", ("float_match",)),
-             "bilinear_sample": ("bilinear_sample",
-                                 ("slice1", "slice2", "default"))}
+             "bilinear_sample": ("bilinear_sample", stitches)}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",

@@ -1,0 +1,98 @@
+"""Rehearse `chip_smoke.py` on a machine without a GPU.
+
+    python scripts/rehearse_chip_smoke.py
+
+Runs `chip_smoke.main()` with the port on the CPU: `torch.cuda` and the
+CUDA-only measurement aids (kernel builds, the boundary phase, graph-replay
+timings, launch capture, the profiler) are stubbed, the launch counts are
+not checked (a CPU tensor runs a kernel's plain version, which does not
+count), and the 8-view workloads shrink to 3 views at the bench's spacing
+between neighbours and 3 scan crops. It finds wrong shapes, arguments and
+control flow in the script and in the paths it drives; it can say nothing
+of the kernels or of any time. Takes 2-3 minutes on a few cores.
+"""
+
+import functools
+import os
+import sys
+import time
+import types
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+import stitching_tpu_torch.pipeline as pipeline  # noqa: E402
+import stitching_tpu_torch.stitcher as stitcher  # noqa: E402
+from stitching_tpu_torch.ops import kernels  # noqa: E402
+
+
+class _Event:
+    def __init__(self, **kwargs):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 0.0
+
+
+def _stub_torch():
+    """chip_smoke's view of torch: CUDA present, every device the CPU."""
+    fake = types.SimpleNamespace(**{k: getattr(torch, k) for k in dir(torch)
+                                    if not k.startswith("__")})
+    fake.__version__ = torch.__version__
+    fake.version = torch.version
+    fake.device = lambda *args, **kwargs: torch.device("cpu")
+    fake.cuda = types.SimpleNamespace(
+        is_available=lambda: True, synchronize=lambda: None, Event=_Event,
+        reset_peak_memory_stats=lambda: None, max_memory_allocated=lambda: 0,
+        get_device_name=lambda i=0: "CPU rehearsal",
+        device_count=lambda: 1)
+    return fake
+
+
+def counted_run(name, fn, wrappers, expect, recorders=()):
+    """`chip_smoke.counted_run` without the launch check."""
+    fn()
+    for r in recorders:
+        r.calls.clear()
+    t0 = time.time()
+    out = fn()
+    wall = time.time() - t0
+    print(f"{name}: wall_s={wall:.4f} launches not counted (CPU)",
+          flush=True)
+    return out, wall, dict(expect)
+
+
+def main():
+    torch.set_num_threads(4)
+    cs.torch = _stub_torch()
+    cs.card_line = lambda: "CPU rehearsal, no power limit"
+    kernels.build = lambda *args, **kwargs: None
+    cs.boundary_phase = lambda dev: print("boundary phase: CUDA only")
+    cs.kernel_times = lambda *args, **kwargs: dict(
+        ms=0.0, call_ms=0.0, floor_ms=0.0, plain_ms=0.0, library_ms=None)
+    cs.launched_kernels = lambda fn, expect, what: expect
+    cs.two_nn_launches = lambda *args, **kwargs: 1
+    cs.profile_stitch = lambda st, imgs: print("profile: CUDA only")
+    cs.counted_run = counted_run
+    rotation_set, scan_set = cs.rotation_set, cs.scan_set
+    # 3 views with the 8-view set's spacing between neighbours
+    cs.rotation_set = lambda n, size, focal, angle, device: (
+        rotation_set(3, size, focal, angle * 2 / 7, "cpu") if n == 8
+        else rotation_set(n, size, focal, angle, "cpu"))
+    cs.scan_set = lambda n, size, seed=0: scan_set(min(n, 3), size, seed)
+    init = stitcher.Stitcher.__init__
+    stitcher.Stitcher.__init__ = (
+        lambda self, device="cpu", **kw: init(self, device="cpu", **kw))
+    pipeline.register_pair = functools.partial(pipeline.register_pair,
+                                               device="cpu")
+    return cs.main()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

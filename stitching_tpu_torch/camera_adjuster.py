@@ -6,8 +6,8 @@ default / reproj / affine / no), the 5-char "xxxxx" refinement mask over
 confidence-threshold edge gating, and StitchingError on failure. The LM
 machinery is `ops/bundle.py` (torch residuals + `torch.func.jacfwd`) and
 runs on the stitcher's device; this component packs the fixed-capacity
-(edge, match) problem tensors from the inlier matches on the host. "affine"
-raises `NotImplementedError` (ROADMAP queue 1: other settings).
+(edge, match) problem tensors from the inlier matches on the host. The
+affine adjuster refines the 4-DoF similarity cameras (a, b, tx, ty).
 """
 
 from collections import OrderedDict
@@ -44,10 +44,6 @@ class CameraAdjuster:
     ):
         if adjuster not in self.CAMERA_ADJUSTER_CHOICES:
             raise StitchingError("invalid adjuster: " + str(adjuster))
-        if adjuster == "affine":
-            raise NotImplementedError(
-                f"adjuster={adjuster!r} is not ported yet (ROADMAP queue 1: "
-                "other settings)")
         self.adjuster = adjuster
         self.refinement_mask = refinement_mask
         self.confidence_threshold = confidence_threshold
@@ -61,7 +57,10 @@ class CameraAdjuster:
             # No confident edges: nothing to adjust (mirrors the native
             # adjusters, which succeed trivially on an empty edge set).
             return estimated_cameras
-        cams = self._adjust_rotation(problem, estimated_cameras)
+        if self.adjuster == "affine":
+            cams = self._adjust_affine(problem, estimated_cameras)
+        else:
+            cams = self._adjust_rotation(problem, estimated_cameras)
         if cams is None:
             raise StitchingError("Camera parameters adjusting failed.")
         return cams
@@ -144,4 +143,23 @@ class CameraAdjuster:
                 focal=float(full[i, 0]), aspect=float(full[i, 3]),
                 ppx=float(full[i, 1]), ppy=float(full[i, 2]),
                 R=R.astype(np.float32)))
+        return out
+
+    # ---- affine model (4-DoF similarity) ----
+
+    def _adjust_affine(self, problem, cameras):
+        params0 = np.zeros((len(cameras), 4), np.float32)
+        for i, c in enumerate(cameras):
+            A = np.asarray(c.R, np.float64)
+            # (a, b, tx, ty) from the embedded 2x3 similarity
+            params0[i] = [A[0, 0], A[1, 0], A[0, 2], A[1, 2]]
+        full, _ = solve_bundle(problem, "affine", np.ones(4, bool), params0,
+                               device=self.device)
+        if not np.all(np.isfinite(full)):
+            return None
+        out = []
+        for c, (a, b, tx, ty) in zip(cameras, full):
+            R = np.array([[a, -b, tx], [b, a, ty], [0, 0, 1]], np.float32)
+            out.append(CameraParams(focal=c.focal, aspect=c.aspect,
+                                    ppx=c.ppx, ppy=c.ppy, R=R))
         return out

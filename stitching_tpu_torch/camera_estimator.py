@@ -1,8 +1,7 @@
 """Initial camera parameter estimation (host code).
 
 Port of `stitching_tpu/camera_estimator.py`: choices homography (default) /
-affine, of which this slice implements homography (affine raises
-`NotImplementedError`), the equivalent of
+affine. The homography path is the equivalent of
 `cv.detail_HomographyBasedEstimator` (SURVEY.md §2b):
 
 1. per-pair focal estimates from homography self-calibration
@@ -16,6 +15,10 @@ affine, of which this slice implements homography (affine raises
 
 Principal points are set to the image center (OpenCV convention, verified).
 MST + propagation run on host (tiny N); all per-pair math is vectorized.
+
+The affine path mirrors `cv.detail_AffineBasedEstimator`: identity K, and R
+the pairwise 2-D similarities chained along the same spanning tree
+(R_v = H(u->v) @ R_u from the tree center), panorama -> image coordinates.
 """
 
 from collections import OrderedDict
@@ -70,6 +73,31 @@ def _max_spanning_tree(n, weight):
     return edges, center
 
 
+def _chain_along_tree(matrix, link):
+    """Per-image transforms from the max spanning tree of the match graph
+    (weights: inlier counts): the tree center gets the identity, and each
+    child v of u gets `link(R_u, H_uv)`, or R_u where the pair has no H.
+    Images the tree does not reach get None."""
+    n = len(matrix)
+    inl_w = np.asarray([[matrix[i][j].num_inliers for j in range(n)]
+                        for i in range(n)], np.float64)
+    edges, center = _max_spanning_tree(n, inl_w)
+    Rs = [None] * n
+    Rs[center] = np.eye(3)
+    frontier = [center]
+    while frontier:
+        nxt = []
+        for u in frontier:
+            for v in edges[u]:
+                if Rs[v] is None:
+                    H_uv = matrix[u][v].H
+                    Rs[v] = (Rs[u].copy() if H_uv is None
+                             else link(Rs[u], H_uv))
+                    nxt.append(v)
+        frontier = nxt
+    return Rs
+
+
 class CameraEstimator:
     CAMERA_ESTIMATOR_CHOICES = OrderedDict(
         homography="homography",
@@ -80,14 +108,13 @@ class CameraEstimator:
     def __init__(self, estimator=DEFAULT_CAMERA_ESTIMATOR, **kwargs):
         if estimator not in self.CAMERA_ESTIMATOR_CHOICES:
             raise StitchingError("invalid estimator: " + str(estimator))
-        if estimator != "homography":
-            raise NotImplementedError(
-                f"estimator={estimator!r} is not ported yet (ROADMAP queue 1: "
-                "other settings)")
         self.estimator_type = estimator
 
     def estimate(self, features, pairwise_matches):
-        cameras = self._estimate_homography(features, pairwise_matches)
+        if self.estimator_type == "affine":
+            cameras = self._estimate_affine(features, pairwise_matches)
+        else:
+            cameras = self._estimate_homography(features, pairwise_matches)
         if cameras is None:
             raise StitchingError("Homography estimation failed.")
         for cam in cameras:
@@ -121,31 +148,10 @@ class CameraEstimator:
             focal = float(np.mean(
                 [f.img_size[0] + f.img_size[1] for f in features]))
 
-        conf_w = np.zeros((n, n))
-        inl_w = np.zeros((n, n))
-        for i in range(n):
-            for j in range(n):
-                conf_w[i, j] = matrix[i][j].confidence
-                inl_w[i, j] = matrix[i][j].num_inliers
-        edges, center = _max_spanning_tree(n, inl_w)
-
         K = _k_matrix(focal)
         K_inv = np.linalg.inv(K)
-        Rs = [None] * n
-        Rs[center] = np.eye(3)
-        frontier = [center]
-        while frontier:
-            nxt = []
-            for u in frontier:
-                for v in edges[u]:
-                    if Rs[v] is None:
-                        H_uv = matrix[u][v].H
-                        if H_uv is None:
-                            Rs[v] = Rs[u].copy()
-                        else:
-                            Rs[v] = Rs[u] @ K_inv @ np.linalg.inv(H_uv) @ K
-                        nxt.append(v)
-            frontier = nxt
+        Rs = _chain_along_tree(
+            matrix, lambda R_u, H_uv: R_u @ K_inv @ np.linalg.inv(H_uv) @ K)
 
         cams = []
         for i in range(n):
@@ -155,3 +161,15 @@ class CameraEstimator:
                 R=(Rs[i] if Rs[i] is not None else np.eye(3)).astype(
                     np.float32)))
         return cams
+
+    # ---- affine-based ----
+
+    def _estimate_affine(self, features, matches):
+        # R_i maps panorama (= tree-center image) coords -> image i coords
+        # (the affine H are 3x3 in raw pixels)
+        Rs = _chain_along_tree(FeatureMatcher.get_matches_matrix(matches),
+                               lambda R_u, H_uv: H_uv @ R_u)
+        return [CameraParams(
+            focal=1.0, aspect=1.0, ppx=0.0, ppy=0.0,
+            R=(R if R is not None else np.eye(3)).astype(np.float32))
+            for R in Rs]

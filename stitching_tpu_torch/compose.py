@@ -8,8 +8,8 @@ memory:
   (`_bwd_coords`) and the validity masks are batched tensor code; the
   bilinear gather is the CUDA kernel `ops/kernels/bilinear_sample`;
 - `slice_stack`: every tile crops to its rect in one pass;
-- `apply_gains_stack`: the blocks compensators' gain maps, bilinearly
-  upsampled per pixel and multiplied in;
+- `apply_gains_stack`: the scalar compensators' gains, or the blocks
+  compensators' gain maps bilinearly upsampled per pixel, multiplied in;
 - `resize_seam_masks_stack`: dilate + resize + mask-AND for all seam masks;
 - `blend_stack`: the multiband blend (each tile's reflect-bordered window,
   its Laplacian pyramid times its seam mask's Gaussian pyramid added into
@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.blend import distance_transform_l1
+from .ops.fma import fma
 from .ops.kernels.bilinear_sample import bilinear_sample
 from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
 from .ops.warp import PROJECTORS, warp_roi
@@ -72,19 +73,28 @@ def plan_warp_rois(sizes, Ks, Rs, scale, warper_type):
 def _bwd_coords(k_rinv, tls, inv_scale, th, tw, warper_type):
     """Backward map over every image's dst grid.
 
-    k_rinv: (B, 3, 3); tls: (B, 2). Returns sx, sy, valid (B, th, tw) and
-    the dst cols (1, 1, tw) / rows (1, th, 1) as float32."""
+    k_rinv: (B, 3, 3), K R^-1 (K A for "affine"); tls: (B, 2). Returns
+    sx, sy, valid (B, th, tw) and the dst cols (1, 1, tw) / rows (1, th, 1)
+    as float32."""
     dev = k_rinv.device
     cols = torch.arange(tw, dtype=torch.float32, device=dev)[None, None, :]
     rows = torch.arange(th, dtype=torch.float32, device=dev)[None, :, None]
     u = ((tls[:, 0, None, None] + cols) * inv_scale).expand(-1, th, tw)
     v = ((tls[:, 1, None, None] + rows) * inv_scale).expand(-1, th, tw)
-    _, bwd = PROJECTORS[warper_type]
-    x, y, z = bwd(u, v)
+    if warper_type == "affine":
+        x, y, z = u, v, torch.ones_like(u)
+    else:
+        _, bwd = PROJECTORS[warper_type]
+        x, y, z = bwd(u, v)
     k = k_rinv[:, :, :, None, None]
-    q0 = k[:, 0, 0] * x + k[:, 0, 1] * y + k[:, 0, 2] * z
-    q1 = k[:, 1, 0] * x + k[:, 1, 1] * y + k[:, 1, 2] * z
-    q2 = k[:, 2, 0] * x + k[:, 2, 1] * y + k[:, 2, 2] * z
+
+    def row(r):
+        # the reference's compiled map fuses k0 x + k1 y + k2 z as
+        # fma(k2, z, fma(k0, x, k1 y)): a sample moved by one ulp moves a
+        # value on a steep edge by ~4e-3
+        return fma(k[:, r, 2], z, fma(k[:, r, 0], x, k[:, r, 1] * y))
+
+    q0, q1, q2 = row(0), row(1), row(2)
     valid = q2 > 0
     q2s = torch.where(q2.abs() < 1e-12, 1e-12, q2)
     return q0 / q2s, q1 / q2s, valid, cols, rows
@@ -135,8 +145,11 @@ def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
     tw = _round_up(int(dsizes[:, 0].max()))
     k_rinv = np.zeros((b, 3, 3), np.float32)
     for i in range(n):
-        k_rinv[i] = (np.asarray(Ks[i], np.float64)
-                     @ np.linalg.inv(np.asarray(Rs[i], np.float64)))
+        K64 = np.asarray(Ks[i], np.float64)
+        R64 = np.asarray(Rs[i], np.float64)
+        # the affine backward map is p = K A (u, v, 1)
+        k_rinv[i] = (K64 @ R64 if warper_type == "affine"
+                     else K64 @ np.linalg.inv(R64))
     tls = np.zeros((b, 2), np.float32)
     tls[:n] = corners
     # padded batch slots get a zero ROI, hence an all-zero mask
@@ -220,16 +233,29 @@ def _gain_map_kernel(tiles, gmaps, cell0, inv_bs):
     return torch.round(tiles * gain).clamp(0.0, 255.0)
 
 
-def plan_gain_arrays(compensator, sizes, b):
+def _gain_mul_kernel(tiles, gains):
+    """tiles: (B, TH, TW, C); gains: (B, C). One gain per image and
+    channel, rounded and saturated as the reference applies it."""
+    return torch.round(tiles * gains[:, None, None, :]).clamp(0.0, 255.0)
+
+
+def plan_gain_arrays(compensator, sizes, b, C):
     """Host arrays for gain application over `b` batch slots whose first
     len(sizes) are real images at the given APPLY-resolution sizes.
 
-    Returns None for compensator "no", else (gstack, cell0, inv_bs) for
-    the blocks variants.
+    Returns (mode, arrays): ("no", None); ("scalar", g (b, C)) for gain
+    and channel; ("map", (gstack, cell0, inv_bs)) for the blocks variants.
     """
-    if compensator.compensator == "no":
-        return None
+    mode = compensator.compensator
+    if mode == "no":
+        return "no", None
     n = len(sizes)
+    if mode in ("gain", "channel"):
+        g = np.ones((b, C), np.float32)
+        for i in range(n):
+            gi = compensator._gains[i]
+            g[i] = gi if len(gi) == C else gi[0]
+        return "scalar", g
     origin, bs, smoothed = compensator._block_state
     subs = []
     cell0 = np.zeros((b, 2), np.float32)
@@ -257,17 +283,22 @@ def plan_gain_arrays(compensator, sizes, b):
         # edge-replicate so the bilinear taps at image edges stay sane
         gstack[i, s.shape[0]:, :s.shape[1]] = s[-1:, :]
         gstack[i, :, s.shape[1]:] = gstack[i, :, s.shape[1] - 1:s.shape[1]]
-    return gstack, cell0, inv_bs
+    return "map", (gstack, cell0, inv_bs)
 
 
 def apply_gains_stack(stack: TileStack, compensator) -> TileStack:
     """Apply the fed compensator to the whole tile stack on its device."""
-    arrs = plan_gain_arrays(compensator, stack.sizes, stack.data.shape[0])
-    if arrs is None:
+    mode, arrs = plan_gain_arrays(compensator, stack.sizes,
+                                  stack.data.shape[0], stack.data.shape[-1])
+    if mode == "no":
         return stack
     dev = stack.data.device
-    tiles = _gain_map_kernel(
-        stack.data, *[torch.as_tensor(a, device=dev) for a in arrs])
+    if mode == "scalar":
+        tiles = _gain_mul_kernel(stack.data, torch.as_tensor(arrs,
+                                                             device=dev))
+    else:
+        tiles = _gain_map_kernel(
+            stack.data, *[torch.as_tensor(a, device=dev) for a in arrs])
     return TileStack(tiles, stack.masks, stack.corners, stack.sizes)
 
 

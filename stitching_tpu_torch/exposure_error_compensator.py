@@ -4,10 +4,9 @@ Port of `stitching_tpu/exposure_error_compensator.py`: choices gain_blocks
 (default) / gain / channel / channel_blocks / no, with `nr_feeds` and
 `block_size`. `feed_stack` estimates on the LOW-resolution tile stack;
 `compose.apply_gains_stack` compensates the FINAL-resolution one from the
-state it leaves. The blocks variants (gain_blocks, channel_blocks) share
-one code path with a `per_channel` flag (`ops/exposure.py`); the scalar
-`gain` / `channel` compensators raise `NotImplementedError` (ROADMAP queue
-1: other settings).
+state it leaves: one gain per image (gain) or per image and channel
+(channel), or a gain map per image (the blocks variants). Each pair of
+kinds shares one code path with a `per_channel` flag (`ops/exposure.py`).
 """
 
 from collections import OrderedDict
@@ -15,7 +14,8 @@ from collections import OrderedDict
 import numpy as np
 
 from .errors import StitchingError
-from .ops.exposure import compute_block_gains_stack, smooth_gain_map
+from .ops.exposure import (compute_block_gains_stack,
+                           compute_scalar_gains_stack, smooth_gain_map)
 
 
 class ExposureErrorCompensator:
@@ -36,24 +36,26 @@ class ExposureErrorCompensator:
         if compensator not in self.COMPENSATOR_CHOICES:
             raise StitchingError(
                 "invalid compensator: " + str(compensator))
-        if compensator in ("gain", "channel"):
-            raise NotImplementedError(
-                f"compensator={compensator!r} is not ported yet (ROADMAP "
-                "queue 1: other settings)")
         self.compensator = compensator
         self.nr_feeds = nr_feeds
         self.block_size = block_size
+        self._gains = None
         self._block_state = None
 
     def feed_stack(self, corners, stack):
-        """Estimate the gain maps from a `compose.TileStack`: the masked
-        block sums run on the stack's device, only the tiny normal systems
-        come to the host."""
+        """Estimate the gains from a `compose.TileStack`: the masked sums
+        run on the stack's device, only the tiny normal systems come to
+        the host."""
         if self.compensator == "no":
             return
-        per_channel = self.compensator == "channel_blocks"
+        per_channel = self.compensator in ("channel", "channel_blocks")
         sizes = np.asarray(stack.sizes)
         n = len(sizes)
+        if self.compensator in ("gain", "channel"):
+            self._gains = compute_scalar_gains_stack(
+                stack.data, stack.masks, corners[:n], sizes, per_channel,
+                nr_feeds=self.nr_feeds)
+            return
         origin, bs, gains, present = compute_block_gains_stack(
             stack.data, stack.masks, corners[:n], sizes, self.block_size,
             per_channel)

@@ -1,15 +1,15 @@
-"""Feature matching component (homography matcher).
+"""Feature matching component.
 
 Port of `stitching_tpu/feature_matcher.py`: the matcher registry
 (homography default / affine), `range_width` banded matching, the flat
 row-major N x N list of MatchesInfo (diagonal and below-threshold entries
 have confidence 0, both (i,j) and (j,i) populated), the confidence-matrix
 helpers and the match_conf defaults (0.3 for binary detectors, 0.65
-otherwise). This slice implements the homography matcher; "affine" raises
-`NotImplementedError`.
+otherwise).
 
-Behavior of the native cv.detail matchers (SURVEY.md §2b): keypoint coords
-are centered on the image center before the model fit; confidence =
+Behavior of the native cv.detail matchers (SURVEY.md §2b): for the
+homography model keypoint coords are centered on the image center before
+the fit, the affine model (a 4-DoF similarity) fits raw pixels; confidence =
 num_inliers / (8 + 0.3 * num_matches), > 3 -> 0; < 6 raw matches -> 0; the
 reverse pair carries H^-1 and the same confidence.
 """
@@ -33,10 +33,6 @@ class FeatureMatcher:
                  range_width=DEFAULT_RANGE_WIDTH, **kwargs):
         if matcher_type not in self.MATCHER_CHOICES:
             raise StitchingError("invalid matcher type: " + str(matcher_type))
-        if matcher_type != "homography":
-            raise NotImplementedError(
-                f"matcher_type={matcher_type!r} is not ported yet (ROADMAP "
-                "queue 1: other settings)")
         self.matcher_type = matcher_type
         self.range_width = range_width
         match_conf = kwargs.get("match_conf")

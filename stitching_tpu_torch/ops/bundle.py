@@ -8,11 +8,12 @@ device.
 Residual models:
 - ray: residual = sqrt(f_i f_j) * (unit(R_i K_i^-1 p) - unit(R_j K_j^-1 q)),
   3 components per inlier match;
-- reproj: residual = proj(K_j R_j^-1 R_i K_i^-1 p) - q, 2 components.
-The affine model is not ported yet.
+- reproj: residual = proj(K_j R_j^-1 R_i K_i^-1 p) - q, 2 components;
+- affine: residual = A_j A_i^-1 p - q for 4-DoF similarity cameras.
 
-Parameter layout per camera: (focal, ppx, ppy, aspect, rvec[3]). The
-refinement mask gates which intrinsics vary; rotations always vary.
+Parameter layout per camera: (focal, ppx, ppy, aspect, rvec[3]) for the
+rotation models, (a, b, tx, ty) for the affine model. The refinement mask
+gates which intrinsics vary; rotations always vary.
 
 The LM loop is data-dependent: each trial step's accept/reject decision is
 read on the host (one flag per step, so one device sync per step), and the
@@ -91,9 +92,17 @@ def _residual(x, params0, src_idx, dst_idx, pts_src, pts_dst, w, variant,
         z = torch.where(z.abs() < 1e-12, 1e-12, z)
         return (((q[..., :2] / z) - pts_dst) * sw[..., None]).reshape(-1)
     if variant == "affine":
-        raise NotImplementedError(
-            "the affine bundle model is not ported yet (ROADMAP queue 1: "
-            "other settings)")
+        # cameras hold A_i mapping panorama -> image i (a, b, tx, ty)
+        ai, bi = pc_i[:, 0, None], pc_i[:, 1, None]
+        det = (ai * ai + bi * bi).clamp_min(1e-12)
+        dx = pts_src[..., 0] - pc_i[:, 2, None]
+        dy = pts_src[..., 1] - pc_i[:, 3, None]
+        X = (ai * dx + bi * dy) / det
+        Y = (-bi * dx + ai * dy) / det
+        aj, bj = pc_j[:, 0, None], pc_j[:, 1, None]
+        rx = aj * X - bj * Y + pc_j[:, 2, None] - pts_dst[..., 0]
+        ry = bj * X + aj * Y + pc_j[:, 3, None] - pts_dst[..., 1]
+        return (torch.stack([rx, ry], -1) * sw[..., None]).reshape(-1)
     raise ValueError("unknown BA variant: " + variant)
 
 

@@ -1,23 +1,104 @@
-"""Exposure (gain) compensation: the blocks variants.
+"""Exposure (gain) compensation.
 
-Port of the batched blocks path of `stitching_tpu/ops/exposure.py`.
+Port of the batched paths of `stitching_tpu/ops/exposure.py`.
 
 Model (Brown-Lowe gain adjustment): minimize over per-image gains g
     sum_pairs N_ij [ alpha (g_i I_ij - g_j I_ji)^2 + beta (g_i - 1)^2 ]
-with alpha = 0.01, beta = 100. Gains are solved per canvas-aligned cell
-(block_size px): cells are independent (blocks only ever overlap blocks at
-the same location), so the solve is one batched (cells, N, N) linear solve,
-followed by per-image gain-map smoothing. The masked block sums run on the
-device over the tile stack; the tiny normal systems and the smoothing run
-in numpy on the host, as in the reference. The scalar `gain` / `channel`
-compensators are not ported yet.
+with alpha = 0.01, beta = 100. The scalar variants (gain, channel) take
+the exact overlap statistics of every pair (`_pair_stats`, batched over
+the pairs on the device) into one (N, N) solve per channel, `nr_feeds`
+times, each round on the stack times the gains so far. The blocks
+variants solve per canvas-aligned cell (block_size px): cells are
+independent (blocks only ever overlap blocks at the same location), so
+the solve is one batched (cells, N, N) linear solve, followed by
+per-image gain-map smoothing. The masked sums run on the device over the
+tile stack; the tiny normal systems and the smoothing run in numpy on the
+host, as in the reference.
 """
 
 import numpy as np
 import torch
 
+from .seam import _pair_windows, _round64, plan_overlaps
+
 ALPHA = 0.01
 BETA = 100.0
+
+
+def solve_gains(n_imgs, stats, n_channels):
+    """stats: list of (i, j, N, I_i, I_j). Returns (n_imgs, n_channels)
+    float64 gains (host numpy, as in the reference)."""
+    gains = np.ones((n_imgs, n_channels))
+    for c in range(n_channels):
+        A = np.zeros((n_imgs, n_imgs))
+        b = np.zeros(n_imgs)
+        for i, j, n, I_i, I_j in stats:
+            A[i, i] += n * (ALPHA * I_i[c] * I_i[c] + BETA)
+            A[j, j] += n * (ALPHA * I_j[c] * I_j[c] + BETA)
+            A[i, j] -= ALPHA * n * I_i[c] * I_j[c]
+            A[j, i] -= ALPHA * n * I_i[c] * I_j[c]
+            b[i] += BETA * n
+            b[j] += BETA * n
+        if A.any():
+            try:
+                gains[:, c] = np.linalg.solve(A + 1e-9 * np.eye(n_imgs), b)
+            except np.linalg.LinAlgError:
+                pass
+    return gains
+
+
+def _pair_stats(data, masks, gains, pairs, bh, bw, per_channel):
+    """Overlap statistics of every pair at once.
+
+    data: (B, TH, TW, C) float32; masks: (B, TH, TW); gains: (B, C)
+    float32, applied (with saturation) before the statistics. Returns
+    (N (P,), I_i (P, S), I_j (P, S)) with S = C or 1: the overlap's pixel
+    count and each image's mean over it."""
+    ai, aj, mi, mj, _, _ = _pair_windows(data, masks, pairs, bh, bw)
+    ai = (ai * gains[[p[0] for p in pairs]][:, None, None, :]).clamp(0.0,
+                                                                     255.0)
+    aj = (aj * gains[[p[1] for p in pairs]][:, None, None, :]).clamp(0.0,
+                                                                     255.0)
+    both = (mi & mj).to(torch.float32)
+    n = both.sum((1, 2))
+    nz = n.clamp_min(1.0)
+    if per_channel:
+        s_i = (ai * both[..., None]).sum((1, 2)) / nz[:, None]
+        s_j = (aj * both[..., None]).sum((1, 2)) / nz[:, None]
+    else:
+        s_i = ((ai.mean(-1) * both).sum((1, 2)) / nz)[:, None]
+        s_j = ((aj.mean(-1) * both).sum((1, 2)) / nz)[:, None]
+    return n, s_i, s_j
+
+
+def compute_scalar_gains_stack(data, masks, corners, sizes, per_channel,
+                               nr_feeds=1):
+    """The scalar compensators' gains from a device tile stack.
+
+    data/masks: device stacks; corners/sizes: host (N, 2) int arrays (the
+    first N batch slots are the real images). Returns (N, C') float64
+    gains, C' = C for "channel", 1 for "gain": the product of `nr_feeds`
+    solves, each on the stack times the gains so far."""
+    n_imgs = len(corners)
+    C = int(data.shape[-1])
+    ncol = C if per_channel else 1
+    pairs = plan_overlaps(np.asarray(corners), np.asarray(sizes))
+    if not pairs:
+        return np.ones((n_imgs, ncol))
+    bw = _round64(max(p[4][0] for p in pairs))
+    bh = _round64(max(p[4][1] for p in pairs))
+    total = np.ones((n_imgs, ncol))
+    cur_gains = np.ones((data.shape[0], C), np.float32)
+    for _ in range(max(1, int(nr_feeds))):
+        N, I_i, I_j = (t.cpu().numpy() for t in _pair_stats(
+            data, masks, torch.as_tensor(cur_gains, device=data.device),
+            pairs, bh, bw, per_channel))
+        stats = [(p[0], p[1], float(N[k]), I_i[k], I_j[k])
+                 for k, p in enumerate(pairs) if N[k] > 0]
+        total = total * solve_gains(n_imgs, stats, ncol)
+        cur_gains[:n_imgs] = total if per_channel \
+            else np.repeat(total, C, axis=1)
+    return total
 
 
 def _block_stats_kernel(data, masks, sub_xy, *, scy, scx, bs, per_channel):

@@ -1,16 +1,19 @@
-"""Batched fixed-iteration RANSAC homography, over a batch of image pairs.
+"""Batched fixed-iteration RANSAC over a batch of image pairs: the
+homography and the 4-DoF similarity (partial affine) models.
 
-Port of `stitching_tpu/ops/ransac.py::ransac_homography` (which the JAX
-matcher vmaps over pairs; here the pair axis P is written out). A static
-batch of 512 minimal samples per pair is drawn at once, all 8x8 systems are
-solved batched, every hypothesis is scored against every point as one
-(P, K, M) tensor, and the best by inlier count is refined by 2 reweighted
-least-squares passes on its inliers.
+Port of `stitching_tpu/ops/ransac.py`'s `ransac_homography` and
+`ransac_affine_partial` (which the JAX matcher vmaps over pairs; here the
+pair axis P is written out). A static batch of 512 minimal samples per pair
+is drawn at once, all minimal systems are solved batched (8x8 solves for
+the homography, the closed form for the similarity), every hypothesis is
+scored against every point as one (P, K, M) tensor, and the best by inlier
+count is refined by 2 reweighted least-squares passes on its inliers.
 
-The minimal samples are the top-4 of `jax.random.uniform(PRNGKey(seed),
-(512, M))`; `threefry_uniform` reproduces that draw bit for bit (threefry
-2x32 over a partitionable 64-bit iota, as JAX draws it), so the port picks
-the same hypotheses as the reference.
+The minimal samples are the top-4 (homography) or top-2 (similarity) of
+`jax.random.uniform(PRNGKey(seed), (512, M))`; `threefry_uniform`
+reproduces that draw bit for bit (threefry 2x32 over a partitionable 64-bit
+iota, as JAX draws it), so the port picks the same hypotheses as the
+reference.
 """
 
 import math
@@ -136,6 +139,34 @@ def _spread(pts, min_d):
     return far.all(dim=-1).all(dim=-1)
 
 
+def _compact(src, dst, valid):
+    """Valid points first, in order (a stable sort), so that the samples
+    hit them. Returns (order, src_c, dst_c, valid_c)."""
+    order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+    src_c = torch.gather(src, 1, order[..., None].expand(-1, -1, 2))
+    dst_c = torch.gather(dst, 1, order[..., None].expand(-1, -1, 2))
+    return order, src_c, dst_c, torch.gather(valid, 1, order)
+
+
+def _minimal_samples(seeds, nvalid, M, k, dev):
+    """Duplicate-free minimal samples: the top-k of per-hypothesis noise
+    restricted to the compacted valid prefix, ties to the lower index as
+    `lax.top_k` takes them. Returns (P, K, k) indices."""
+    noise = threefry_uniform(seeds, (N_HYPOTHESES, M), device=dev)
+    cols = torch.arange(M, device=dev)
+    noise = torch.where(cols[None, None, :] < nvalid[:, None, None],
+                        noise, -1.0)
+    return torch.sort(noise, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def _take(pts, idx):
+    """pts (P, M, 2) at idx (P, K, k) -> (P, K, k, 2)."""
+    P = idx.shape[0]
+    g = torch.gather(pts, 1, idx.reshape(P, -1)[..., None].expand(-1, -1, 2))
+    return g.reshape(*idx.shape, 2)
+
+
 def ransac_homography(src, dst, valid, seeds):
     """RANSAC homography fit for P pairs at once.
 
@@ -147,30 +178,12 @@ def ransac_homography(src, dst, valid, seeds):
     dev = src.device
     nvalid = valid.sum(-1)                                      # (P,)
 
-    # Compact valid points to the front so hypothesis sampling hits them.
-    order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
-    src_c = torch.gather(src, 1, order[..., None].expand(-1, -1, 2))
-    dst_c = torch.gather(dst, 1, order[..., None].expand(-1, -1, 2))
-    valid_c = torch.gather(valid, 1, order)
-
+    order, src_c, dst_c, valid_c = _compact(src, dst, valid)
     Ts, src_n = _normalize_points(src_c, valid_c)
     Td, dst_n = _normalize_points(dst_c, valid_c)
 
-    # Duplicate-free minimal samples: top-4 of per-hypothesis noise
-    # restricted to the compacted valid prefix (lax.top_k's tie order).
-    noise = threefry_uniform(seeds, (N_HYPOTHESES, M), device=dev)
-    cols = torch.arange(M, device=dev)
-    noise = torch.where(cols[None, None, :] < nvalid[:, None, None],
-                        noise, -1.0)
-    idx = torch.sort(noise, dim=-1, descending=True,
-                     stable=True).indices[..., :4]              # (P, K, 4)
-
-    def take(pts):
-        flat = idx.reshape(P, -1)
-        g = torch.gather(pts, 1, flat[..., None].expand(-1, -1, 2))
-        return g.reshape(P, N_HYPOTHESES, 4, 2)
-
-    s4, d4 = take(src_n), take(dst_n)
+    idx = _minimal_samples(seeds, nvalid, M, 4, dev)             # (P, K, 4)
+    s4, d4 = _take(src_n, idx), _take(dst_n, idx)
     scale_s = Ts[:, 0, 0]
     scale_d = Td[:, 0, 0]
     hyp_ok = _spread(s4, scale_s) & _spread(d4, scale_d)       # (P, K)
@@ -206,4 +219,97 @@ def ransac_homography(src, dst, valid, seeds):
     inliers = torch.zeros_like(valid).scatter(1, order, inliers_c)
     num = inliers.sum(-1).to(torch.int32)
     ok = (nvalid >= 4) & (num >= 4) & any_hyp
+    return dict(H=H, inliers=inliers, num_inliers=num, ok=ok)
+
+
+def _sim_from_2pts(src2, dst2):
+    """Batched 4-DoF similarity from 2 point pairs: (..., 2, 2) x 2 ->
+    (..., 2, 3), [a -b tx; b a ty] mapping both src points onto dst."""
+    p0, p1 = src2[..., 0, :], src2[..., 1, :]
+    q0, q1 = dst2[..., 0, :], dst2[..., 1, :]
+    dp = p1 - p0
+    dq = q1 - q0
+    den = (dp * dp).sum(-1)
+    den = torch.where(den < 1e-12, 1e-12, den)
+    a = (dp[..., 0] * dq[..., 0] + dp[..., 1] * dq[..., 1]) / den
+    b = (dp[..., 0] * dq[..., 1] - dp[..., 1] * dq[..., 0]) / den
+    tx = q0[..., 0] - (a * p0[..., 0] - b * p0[..., 1])
+    ty = q0[..., 1] - (b * p0[..., 0] + a * p0[..., 1])
+    return torch.stack([torch.stack([a, -b, tx], dim=-1),
+                        torch.stack([b, a, ty], dim=-1)], dim=-2)
+
+
+def _apply_affine(A, pts):
+    """A: (P, ..., 2, 3); pts (P, M, 2) -> (P, ..., M, 2)."""
+    lin = torch.einsum("p...ij,pmj->p...mi", A[..., :2], pts)
+    return lin + A[..., None, :, 2]
+
+
+def _fit_sim_lsq(src, dst, w):
+    """Weighted least-squares similarity (a, b, tx, ty) per pair:
+    src/dst (P, M, 2), w (P, M) -> (P, 2, 3)."""
+    sw = w.sum(-1).clamp_min(1e-8)[:, None]
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    sx = (w * x).sum(-1, keepdim=True) / sw
+    sy = (w * y).sum(-1, keepdim=True) / sw
+    su = (w * u).sum(-1, keepdim=True) / sw
+    sv = (w * v).sum(-1, keepdim=True) / sw
+    xc, yc, uc, vc = x - sx, y - sy, u - su, v - sv
+    d = (w * (xc * xc + yc * yc)).sum(-1).clamp_min(1e-12)
+    a = (w * (xc * uc + yc * vc)).sum(-1) / d
+    b = (w * (xc * vc - yc * uc)).sum(-1) / d
+    tx = su[:, 0] - (a * sx[:, 0] - b * sy[:, 0])
+    ty = sv[:, 0] - (b * sx[:, 0] + a * sy[:, 0])
+    return torch.stack([torch.stack([a, -b, tx], dim=-1),
+                        torch.stack([b, a, ty], dim=-1)], dim=-2)
+
+
+def ransac_affine_partial(src, dst, valid, seeds):
+    """RANSAC 4-DoF similarity fit for P pairs at once (the analog of
+    cv.estimateAffinePartial2D), in raw pixel coordinates.
+
+    Args: src, dst (P, M, 2) float32; valid (P, M) bool; seeds (P,) uint32.
+    Returns dict(H (P,3,3) with [0,0,1] last row, inliers (P,M) bool,
+                 num_inliers (P,) int32, ok (P,) bool).
+    """
+    P, M = valid.shape
+    dev = src.device
+    nvalid = valid.sum(-1)
+    order, src_c, dst_c, valid_c = _compact(src, dst, valid)
+    idx = _minimal_samples(seeds, nvalid, M, 2, dev)           # (P, K, 2)
+    s2, d2 = _take(src_c, idx), _take(dst_c, idx)
+
+    # Degenerate-sample rejection: distinct rows may carry coincident
+    # points (many matches can share a keypoint); a 2-point hypothesis on
+    # coincident points collapses to scale ~0. Require > 1 px separation
+    # on both sides.
+    hyp_ok = ((((s2[..., 0, :] - s2[..., 1, :]) ** 2).sum(-1) > 1.0)
+              & (((d2[..., 0, :] - d2[..., 1, :]) ** 2).sum(-1) > 1.0))
+
+    A = _sim_from_2pts(s2, d2)                                 # (P,K,2,3)
+    err2 = ((_apply_affine(A, src_c) - dst_c[:, None]) ** 2).sum(-1)
+    th2 = RANSAC_THRESH ** 2
+    inl = (err2 < th2) & valid_c[:, None, :] & hyp_ok[..., None]
+    score = inl.sum(-1).to(torch.float32) - torch.where(
+        inl, err2, 0.0).sum(-1) * 1e-8
+    score = torch.where(hyp_ok, score, -math.inf)
+    best = torch.argmax(score, dim=-1)                         # (P,)
+    inliers_c = torch.gather(
+        inl, 1, best[:, None, None].expand(-1, 1, M))[:, 0]
+    any_hyp = hyp_ok.any(-1)
+
+    for _ in range(2):
+        A_ref = _fit_sim_lsq(src_c, dst_c, inliers_c.to(torch.float32))
+        err2_1 = ((_apply_affine(A_ref, src_c) - dst_c) ** 2).sum(-1)
+        inliers_c = (err2_1 < th2) & valid_c
+
+    last = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(P, 1, 3)
+    H = torch.cat([A_ref, last], dim=1)
+    # reject collapsed refined models too (the weighted LSQ can shrink the
+    # scale toward 0 if the inlier set is itself near-degenerate)
+    sc2 = A_ref[:, 0, 0] ** 2 + A_ref[:, 1, 0] ** 2
+    inliers = torch.zeros_like(valid).scatter(1, order, inliers_c)
+    num = inliers.sum(-1).to(torch.int32)
+    ok = (nvalid >= 2) & (num >= 2) & any_hyp & (sc2 > 1e-6)
     return dict(H=H, inliers=inliers, num_inliers=num, ok=ok)

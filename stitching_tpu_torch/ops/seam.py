@@ -1,14 +1,17 @@
-"""Seam estimation on the card: dynamic-programming and voronoi seams.
+"""Seam estimation on the card: dynamic-programming, graph-cut and
+voronoi seams.
 
 Port of the batched paths of `stitching_tpu/ops/seam.py` (the engine's LOW
-pass), the equivalents of cv.detail DpSeamFinder COLOR / COLOR_GRAD and
-VoronoiSeamFinder:
+pass), the equivalents of cv.detail DpSeamFinder COLOR / COLOR_GRAD,
+GraphCutSeamFinder COLOR / COLOR_GRAD and VoronoiSeamFinder:
 
 - `dp_seams_stack`: every overlapping pair's seam from the ORIGINAL warp
   masks, one batched pass per orientation group (vertical seams where the
   overlap is at least as tall as wide, else the transposed problem), then
   all ownership cuts applied in pair order and `ensure_coverage` restoring
   pixels that cyclic ownership left with no owner;
+- `gc_seams_stack`: the same plan with every pair's min cut
+  (`ops/graphcut.seam_cut_pair`) in one batch;
 - `voronoi_seams_stack`: each contested canvas pixel goes to the image
   whose unique territory is nearest (`ops/blend.distance_transform_l1`),
   ties to the lower index.
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .blend import distance_transform_l1
+from .graphcut import seam_cut_pair
 
 # invalid cells get a moderate additive penalty, not +inf: the running sum
 # must stay small enough that real per-cell differences survive float32
@@ -94,6 +98,32 @@ def _windows(stack, idx, origins, bh, bw):
                         for i, o in zip(idx, origins)])
 
 
+def _pair_windows(data, masks, pairs, bh, bw):
+    """Each pair's (bh, bw) windows at its overlap's origin in both images.
+
+    data: (B, TH, TW, C) float32; masks: (B, TH, TW) float32 {0, 255};
+    pairs: host list of (i, j, oxy_i, oxy_j, (ow, oh)). Returns the
+    content (ai, aj), each (P, bh, bw, C), the masks (mi, mj), each
+    (P, bh, bw) bool and false outside the overlap rect, and the rect
+    sizes (ow, oh), each (P, 1, 1) int64.
+    """
+    dev = data.device
+    data = F.pad(data, (0, 0, 0, bw, 0, bh))
+    masks = F.pad(masks, (0, bw, 0, bh))
+    ii = [p[0] for p in pairs]
+    jj = [p[1] for p in pairs]
+    ai = _windows(data, ii, [p[2] for p in pairs], bh, bw)
+    aj = _windows(data, jj, [p[3] for p in pairs], bh, bw)
+    mi = _windows(masks, ii, [p[2] for p in pairs], bh, bw)
+    mj = _windows(masks, jj, [p[3] for p in pairs], bh, bw)
+    wh = torch.as_tensor(np.asarray([p[4] for p in pairs], np.int64),
+                         device=dev)
+    ow, oh = wh[:, 0, None, None], wh[:, 1, None, None]
+    inov = ((torch.arange(bw, device=dev)[None, None, :] < ow)
+            & (torch.arange(bh, device=dev)[None, :, None] < oh))
+    return ai, aj, (mi > 0) & inov, (mj > 0) & inov, ow, oh
+
+
 def _pair_seams_kernel(data, masks, group, bh, bw, use_grad, transpose):
     """All pair seams of one orientation group.
 
@@ -104,22 +134,9 @@ def _pair_seams_kernel(data, masks, group, bh, bw, use_grad, transpose):
     un-transposed overlap coordinates.
     """
     dev = data.device
-    data = F.pad(data, (0, 0, 0, bw, 0, bh))
-    masks = F.pad(masks, (0, bw, 0, bh))
-    ii = [p[0] for p in group]
-    jj = [p[1] for p in group]
-    ai = _windows(data, ii, [p[2] for p in group], bh, bw)
-    aj = _windows(data, jj, [p[3] for p in group], bh, bw)
-    mi = _windows(masks, ii, [p[2] for p in group], bh, bw)
-    mj = _windows(masks, jj, [p[3] for p in group], bh, bw)
-    wh = torch.as_tensor(np.asarray([p[4] for p in group], np.int64),
-                         device=dev)
-    ow, oh = wh[:, 0, None, None], wh[:, 1, None, None]
+    ai, aj, mi_b, mj_b, ow, oh = _pair_windows(data, masks, group, bh, bw)
     cols = torch.arange(bw, device=dev)[None, None, :]
     rows = torch.arange(bh, device=dev)[None, :, None]
-    inov = (cols < ow) & (rows < oh)
-    mi_b = (mi > 0) & inov
-    mj_b = (mj > 0) & inov
     both = mi_b & mj_b
     diff = _sum_channels((ai - aj).abs())
     if use_grad:
@@ -260,6 +277,37 @@ def dp_seams_stack(data, masks, corners, sizes, use_grad):
         keep_i, keep_j = _pair_seams_kernel(data, masks, group, bh, bw,
                                             use_grad, transpose)
         out = _apply_keeps(out, group, keep_i, keep_j, bh, bw)
+    out = ensure_coverage(masks, out, corners, sizes)
+    return torch.where(out > 0, 255.0, 0.0)
+
+
+def _gc_pairs(data, masks, pairs, bh, bw, use_grad):
+    """Every pair's graph cut in one batched pass over (bh, bw) windows
+    (the coarse-to-fine depth follows the bucket, as in the reference).
+    Returns (keep_i, keep_j), each (P, bh, bw) float32 {0, 1}."""
+    ai, aj, mi_b, mj_b, _, _ = _pair_windows(data, masks, pairs, bh, bw)
+    both = mi_b & mj_b
+    own_i = seam_cut_pair(ai, aj, both, mi_b & ~mj_b, mj_b & ~mi_b,
+                          use_grad)
+    return ((~both | own_i).to(torch.float32),
+            (~both | ~own_i).to(torch.float32))
+
+
+def gc_seams_stack(data, masks, corners, sizes, use_grad):
+    """Batched graph-cut seams over a tile stack on its device.
+
+    As `dp_seams_stack`: every pair's cut from the ORIGINAL warp masks, all
+    pairs in one batch over one 64-bucketed window shape, then the cuts
+    applied in pair order and `ensure_coverage`. Returns (B, TH, TW)
+    float32 {0, 255}; padded batch slots pass through.
+    """
+    pairs = plan_overlaps(np.asarray(corners), np.asarray(sizes))
+    if not pairs:
+        return masks
+    bw = _round64(max(p[4][0] for p in pairs))
+    bh = _round64(max(p[4][1] for p in pairs))
+    keep_i, keep_j = _gc_pairs(data, masks, pairs, bh, bw, use_grad)
+    out = _apply_keeps(masks, pairs, keep_i, keep_j, bh, bw)
     out = ensure_coverage(masks, out, corners, sizes)
     return torch.where(out > 0, 255.0, 0.0)
 

@@ -1,18 +1,21 @@
-"""Rotation surface projections: the compositing-path geometry.
+"""Surface projections: the compositing-path geometry.
 
-Port of `stitching_tpu/ops/warp.py`'s projector pair and ROI planning for
-the spherical surface, the equivalent of `cv.PyRotationWarper`
-(`stitching/warper.py:10-27`):
+Port of `stitching_tpu/ops/warp.py`'s projector pairs and ROI planning for
+all 16 surfaces of `cv.PyRotationWarper` / `cv.AffineWarper`
+(`stitching/warper.py:10-27`). For the 15 rotation surfaces:
 
   ray X = R K^-1 p   (image pixel -> world ray)
   (u, v) = scale * proj(X)
   backward: p = K R^-1 unproj(u/scale, v/scale)
 
+For "affine", R holds the 2-D similarity A mapping panorama to image
+coordinates: forward uv = scale * (K A)^-1 p, backward p = K A (u, v, 1).
+
 `_build_projectors(xp)` is written over an array namespace: the torch
 instance feeds the warp's backward map on the card (`compose.py`), the
-numpy instance plans ROIs on the host. The other 15 surfaces of the
-reference wait for ROADMAP queue 1 (other settings); `WARP_TYPES` names
-them all so that the warper can tell an unported surface from a wrong one.
+numpy instance plans ROIs on the host. The formulas, their order of
+operations and their guards at singular points (`abs(z) < 1e-12`,
+`abs(sin u) < 1e-7`, the clips near +-1) are the reference's.
 """
 
 import math
@@ -23,18 +26,11 @@ import torch
 
 PI = math.pi
 
-WARP_TYPES = (
-    "affine", "spherical", "plane", "cylindrical", "fisheye",
-    "stereographic", "compressedPlaneA2B1", "compressedPlaneA1.5B1",
-    "compressedPlanePortraitA2B1", "compressedPlanePortraitA1.5B1",
-    "paniniA2B1", "paniniA1.5B1", "paniniPortraitA2B1",
-    "paniniPortraitA1.5B1", "mercator", "transverseMercator",
-)
-
 
 def _build_projectors(xp):
-    """Forward (x,y,z) -> (u,v) and backward (u,v) -> (x,y,z) projections,
-    unscaled (the canvas scale multiplies u, v outside)."""
+    """Forward (x,y,z) -> (u,v) and backward (u,v) -> (x,y,z) projections
+    of the 15 rotation surfaces, unscaled (the canvas scale multiplies u, v
+    outside)."""
     def _sph_fwd(x, y, z):
         u = xp.arctan2(x, z)
         r = xp.sqrt(x * x + y * y + z * z)
@@ -45,19 +41,177 @@ def _build_projectors(xp):
         sinv = xp.sin(PI - v)
         return sinv * xp.sin(u), xp.cos(PI - v), sinv * xp.cos(u)
 
-    return {"spherical": (_sph_fwd, _sph_bwd)}
+    def _plane_fwd(x, y, z):
+        zz = xp.where(xp.abs(z) < 1e-12, 1e-12, z)
+        return x / zz, y / zz
+
+    def _plane_bwd(u, v):
+        return u, v, xp.ones_like(u)
+
+    def _cyl_fwd(x, y, z):
+        u = xp.arctan2(x, z)
+        v = y / xp.maximum(xp.sqrt(x * x + z * z), 1e-12)
+        return u, v
+
+    def _cyl_bwd(u, v):
+        return xp.sin(u), v, xp.cos(u)
+
+    def _fish_fwd(x, y, z):
+        u_ = xp.arctan2(x, z)
+        r = xp.sqrt(x * x + y * y + z * z)
+        v_ = PI - xp.arccos(xp.clip(y / xp.maximum(r, 1e-12), -1.0, 1.0))
+        return v_ * xp.cos(u_), v_ * xp.sin(u_)
+
+    def _fish_bwd(u, v):
+        u_ = xp.arctan2(v, u)
+        v_ = xp.sqrt(u * u + v * v)
+        sinv = xp.sin(PI - v_)
+        return sinv * xp.sin(u_), xp.cos(PI - v_), sinv * xp.cos(u_)
+
+    def _stereo_fwd(x, y, z):
+        u_ = xp.arctan2(x, z)
+        r = xp.sqrt(x * x + y * y + z * z)
+        v_ = PI - xp.arccos(xp.clip(y / xp.maximum(r, 1e-12), -1.0, 1.0))
+        rad = xp.sin(v_) / xp.maximum(1.0 - xp.cos(v_), 1e-12)
+        return rad * xp.cos(u_), rad * xp.sin(u_)
+
+    def _stereo_bwd(u, v):
+        u_ = xp.arctan2(v, u)
+        rp = xp.sqrt(u * u + v * v)
+        v_ = 2.0 * xp.arctan2(1.0, rp)  # r = cot(v_/2)
+        sinv = xp.sin(PI - v_)
+        return sinv * xp.sin(u_), xp.cos(PI - v_), sinv * xp.cos(u_)
+
+    def _comp_fwd(a, b):
+        def fwd(x, y, z):
+            u_ = xp.arctan2(x, z)
+            r = xp.sqrt(x * x + y * y + z * z)
+            v_ = xp.arcsin(xp.clip(y / xp.maximum(r, 1e-12), -1.0, 1.0))
+            u = a * xp.tan(u_ / a)
+            v = b * xp.tan(v_ / b) / xp.cos(u_)
+            return u, v
+        return fwd
+
+    def _comp_bwd(a, b):
+        def bwd(u, v):
+            u_ = a * xp.arctan2(u, a)
+            lat = b * xp.arctan2(v * xp.cos(u_), b)
+            cl = xp.cos(lat)
+            return cl * xp.sin(u_), xp.sin(lat), cl * xp.cos(u_)
+        return bwd
+
+    def _pan_fwd(a, b):
+        def fwd(x, y, z):
+            u_ = xp.arctan2(x, z)
+            tg = a * xp.tan(u_ / a)
+            rho = xp.maximum(xp.sqrt(x * x + z * z), 1e-12)
+            tanv = y / rho
+            sinu = xp.sin(u_)
+            v = xp.where(xp.abs(sinu) < 1e-7,
+                         b * tanv,
+                         b * tg * tanv / xp.where(
+                             xp.abs(sinu) < 1e-7, 1.0, sinu))
+            return tg, v
+        return fwd
+
+    def _pan_bwd(a, b):
+        def bwd(u, v):
+            u_ = a * xp.arctan2(u, a)
+            sinu = xp.sin(u_)
+            tanv = xp.where(xp.abs(sinu) < 1e-7,
+                            v / b,
+                            v * sinu / (b * xp.where(
+                                xp.abs(u) < 1e-12, 1.0, u)))
+            lat = xp.arctan(tanv)
+            cl = xp.cos(lat)
+            return cl * xp.sin(u_), xp.sin(lat), cl * xp.cos(u_)
+        return bwd
+
+    def _merc_fwd(x, y, z):
+        u = xp.arctan2(x, z)
+        rho = xp.maximum(xp.sqrt(x * x + z * z), 1e-12)
+        v = xp.arcsinh(y / rho)
+        return u, v
+
+    def _merc_bwd(u, v):
+        lat = xp.arctan(xp.sinh(v))
+        cl = xp.cos(lat)
+        return cl * xp.sin(u), xp.sin(lat), cl * xp.cos(u)
+
+    def _tmerc_fwd(x, y, z):
+        lon = xp.arctan2(x, z)
+        r = xp.sqrt(x * x + y * y + z * z)
+        lat = xp.arcsin(xp.clip(y / xp.maximum(r, 1e-12), -1.0, 1.0))
+        B = xp.clip(xp.cos(lat) * xp.sin(lon), -0.9999999, 0.9999999)
+        u = xp.arctanh(B)
+        v = xp.arctan2(xp.tan(lat), xp.cos(lon))
+        return u, v
+
+    def _tmerc_bwd(u, v):
+        lat = xp.arcsin(xp.clip(xp.sin(v) / xp.cosh(u), -1.0, 1.0))
+        lon = xp.arctan2(xp.sinh(u), xp.cos(v))
+        cl = xp.cos(lat)
+        return cl * xp.sin(lon), xp.sin(lat), cl * xp.cos(lon)
+
+    def _portrait(fwd, bwd):
+        """Portrait: swap x<->y in the ray, negate u."""
+        def pfwd(x, y, z):
+            u, v = fwd(y, x, z)
+            return -u, v
+
+        def pbwd(u, v):
+            x, y, z = bwd(-u, v)
+            return y, x, z
+        return pfwd, pbwd
+
+    comp2 = (_comp_fwd(2.0, 1.0), _comp_bwd(2.0, 1.0))
+    comp15 = (_comp_fwd(1.5, 1.0), _comp_bwd(1.5, 1.0))
+    pan2 = (_pan_fwd(2.0, 1.0), _pan_bwd(2.0, 1.0))
+    pan15 = (_pan_fwd(1.5, 1.0), _pan_bwd(1.5, 1.0))
+
+    return {
+        "spherical": (_sph_fwd, _sph_bwd),
+        "plane": (_plane_fwd, _plane_bwd),
+        "cylindrical": (_cyl_fwd, _cyl_bwd),
+        "fisheye": (_fish_fwd, _fish_bwd),
+        "stereographic": (_stereo_fwd, _stereo_bwd),
+        "compressedPlaneA2B1": comp2,
+        "compressedPlaneA1.5B1": comp15,
+        "compressedPlanePortraitA2B1": _portrait(*comp2),
+        "compressedPlanePortraitA1.5B1": _portrait(*comp15),
+        "paniniA2B1": pan2,
+        "paniniA1.5B1": pan15,
+        "paniniPortraitA2B1": _portrait(*pan2),
+        "paniniPortraitA1.5B1": _portrait(*pan15),
+        "mercator": (_merc_fwd, _merc_bwd),
+        "transverseMercator": (_tmerc_fwd, _tmerc_bwd),
+    }
+
+
+def _atan2(y, x):
+    """torch.atan2 taking a Python number for either side (as float32)."""
+    if not torch.is_tensor(y):
+        y = torch.full_like(x, y)
+    if not torch.is_tensor(x):
+        x = torch.full_like(y, x)
+    return torch.atan2(y, x)
 
 
 def _torch_namespace():
     """The numpy-style names `_build_projectors` uses, over torch."""
     return types.SimpleNamespace(
-        arctan2=torch.atan2, sqrt=torch.sqrt, arccos=torch.arccos,
-        clip=torch.clip, maximum=torch.clamp_min, sin=torch.sin,
-        cos=torch.cos)
+        arctan2=_atan2, sqrt=torch.sqrt, arccos=torch.arccos,
+        arcsin=torch.arcsin, arctan=torch.arctan, arcsinh=torch.arcsinh,
+        arctanh=torch.arctanh, clip=torch.clip, maximum=torch.clamp_min,
+        sin=torch.sin, cos=torch.cos, tan=torch.tan, sinh=torch.sinh,
+        cosh=torch.cosh, abs=torch.abs, where=torch.where,
+        ones_like=torch.ones_like)
 
 
 PROJECTORS = _build_projectors(_torch_namespace())
 PROJECTORS_NP = _build_projectors(np)
+
+WARP_TYPES = ("affine",) + tuple(PROJECTORS)
 
 # ---------------------------------------------------------------------------
 # Forward projection of source border -> destination ROI
@@ -77,6 +231,11 @@ def warp_points(pts, K, R, scale, warper_type):
     """Forward-project pixel points (N, 2) -> surface coords (N, 2)."""
     K = np.asarray(K, np.float64)
     R = np.asarray(R, np.float64)
+    if warper_type == "affine":
+        # R holds A, panorama -> image coordinates: uv = scale (K A)^-1 p
+        q = np.concatenate([pts, np.ones((len(pts), 1))], 1) @ \
+            np.linalg.inv(K @ R).T
+        return (q[:, :2] * scale).astype(np.float32)
     fwd, _ = PROJECTORS_NP[warper_type]
     r_kinv = R @ np.linalg.inv(K)
     ph = np.concatenate([pts, np.ones((len(pts), 1))], 1)
@@ -90,10 +249,15 @@ def warp_roi(size_wh, K, R, scale, warper_type):
     """Destination ROI of the warped image: ((tl_x, tl_y), (w, h)).
 
     Mirrors cv.RotationWarper.warpRoi: border-point forward projection with
-    pole handling for the spherical surface.
+    pole handling for the spherical surface; the affine ROI spans the four
+    projected corners.
     """
     w, h = int(size_wh[0]), int(size_wh[1])
-    pts = _border_points(w, h)
+    if warper_type == "affine":
+        pts = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]],
+                       np.float32)
+    else:
+        pts = _border_points(w, h)
     uv = warp_points(pts, K, R, scale, warper_type)
     u_min, v_min = uv.min(0)
     u_max, v_max = uv.max(0)

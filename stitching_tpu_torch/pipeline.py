@@ -9,7 +9,8 @@ living in device memory:
 - detection runs once over the whole batch (`ops/orb.detect_orb`);
 - matching + RANSAC runs the whole C(B,2) pair axis at once: the 2-NN is
   the CUDA kernel `ops/kernels/two_nn.two_nn_pairs`, ratio/union and
-  RANSAC are batched over pairs;
+  RANSAC (homography, or the similarity for the affine matcher) are
+  batched over pairs;
 - `register_pair` registers ONE pair of frames (detect, `match_pair`,
   RANSAC): the per-pair unit the match graph is built from.
 
@@ -27,7 +28,7 @@ from .ops.fma import fma
 from .ops.kernels.two_nn import two_nn_pairs
 from .ops.match import match_pair, ratio_union
 from .ops.orb import detect_orb
-from .ops.ransac import ransac_homography
+from .ops.ransac import ransac_affine_partial, ransac_homography
 
 _BUCKET = 64
 
@@ -176,11 +177,12 @@ def make_pairs(n, range_width=-1):
 
 
 def _match_pairs(desc, valid, xy, centers, pair_ij, seeds, match_conf, *,
-                 is_binary):
+                 is_binary, model):
     """All pairs of one chunk at once.
 
     desc: (B, N, D); valid: (B, N); xy: (B, N, 2); centers: (B, 2);
-    pair_ij: (P, 2) int32; seeds: (P,) uint32 seeds (int64 tensor).
+    pair_ij: (P, 2) int32; seeds: (P,) uint32 seeds (int64 tensor);
+    model: "homography" or "affine" (the 4-DoF similarity).
     """
     d0, d1, i0 = two_nn_pairs(desc, valid, pair_ij, is_binary=is_binary)
     if not is_binary:
@@ -197,7 +199,9 @@ def _match_pairs(desc, valid, xy, centers, pair_ij, seeds, match_conf, *,
                          pairs[..., col, None].expand(-1, -1, 2))
         return g - centers[img_idx][:, None, :]
 
-    r = ransac_homography(pts(pi, 0), pts(pj, 1), mvalid, seeds)
+    ransac = ransac_affine_partial if model == "affine" else \
+        ransac_homography
+    r = ransac(pts(pi, 0), pts(pj, 1), mvalid, seeds)
     nm = mvalid.sum(-1)
     ni = torch.where(r["ok"], r["num_inliers"], 0)
     conf = ni.to(torch.float32) / fma(nm.to(torch.float32), 0.3, 8.0)
@@ -217,10 +221,6 @@ def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
     Returns (pair_list, [(device_out, n_valid), ...]) — one entry per pair
     chunk; `match_stack_fetch` copies them to host.
     """
-    if matcher_type != "homography":
-        raise NotImplementedError(
-            f"matcher_type={matcher_type!r} is not ported yet (ROADMAP "
-            "queue 1: other settings)")
     desc = feats["desc"]
     dev = desc.device
     n = n_images if n_images is not None else desc.shape[0]
@@ -230,8 +230,11 @@ def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
     seeds = (pair_ij[:, 0].astype(np.uint32) * np.uint32(n)
              + pair_ij[:, 1].astype(np.uint32))
     b = desc.shape[0]
+    # the homography model centres coordinates on the image centre (the
+    # cv.detail convention); the affine model takes raw pixels
     centers = np.zeros((b, 2), np.float32)
-    centers[:len(img_sizes)] = np.asarray(img_sizes, np.float32) * 0.5
+    if matcher_type != "affine":
+        centers[:len(img_sizes)] = np.asarray(img_sizes, np.float32) * 0.5
     centers = torch.as_tensor(centers, device=dev)
     valid = torch.as_tensor(feats["valid"], device=dev)
     xy = torch.as_tensor(feats["xy"], device=dev)
@@ -247,7 +250,9 @@ def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
         pair_t = torch.as_tensor(pair_ij[lo:hi], device=dev)
         seed_t = torch.as_tensor(seeds[lo:hi].astype(np.int64), device=dev)
         out = _match_pairs(desc, valid, xy, centers, pair_t, seed_t,
-                           float(match_conf), is_binary=is_binary)
+                           float(match_conf), is_binary=is_binary,
+                           model=("affine" if matcher_type == "affine"
+                                  else "homography"))
         chunks.append((out, hi - lo))
     return pair_ij, chunks
 

@@ -3,15 +3,15 @@
 Port of `stitching_tpu/seam_finder.py`'s settings surface: the registry
 dp_color (default) / dp_colorgrad / gc_color / gc_colorgrad / voronoi / no.
 `find_stack` runs on the LOW tile stack on its device: "no" keeps the warp
-masks, dp_color and dp_colorgrad run `ops/seam.dp_seams_stack`, voronoi
-`ops/seam.voronoi_seams_stack`. The graph-cut finders raise
-`NotImplementedError` (ROADMAP queue 1: seams (graph cut)).
+masks, dp_color and dp_colorgrad run `ops/seam.dp_seams_stack`, gc_color
+and gc_colorgrad `ops/seam.gc_seams_stack`, voronoi
+`ops/seam.voronoi_seams_stack`.
 """
 
 from collections import OrderedDict
 
 from .errors import StitchingError
-from .ops.seam import dp_seams_stack, voronoi_seams_stack
+from .ops.seam import dp_seams_stack, gc_seams_stack, voronoi_seams_stack
 
 
 class SeamFinder:
@@ -30,17 +30,14 @@ class SeamFinder:
             raise StitchingError("invalid seam finder: " + str(finder))
         self.finder_name = finder
         self.kind, self.use_grad = self.SEAM_FINDER_CHOICES[finder]
-        if self.kind == "gc":
-            raise NotImplementedError(
-                f"finder={finder!r} is not ported yet (ROADMAP queue 1: "
-                "seams (graph cut))")
 
     def find_stack(self, stack):
         """Seam masks over a `compose.TileStack`: a (B, TH, TW) float32
         {0, 255} tensor on the stack's device."""
         if self.kind == "no":
             return stack.masks
-        if self.kind == "dp":
-            return dp_seams_stack(stack.data, stack.masks, stack.corners,
-                                  stack.sizes, self.use_grad)
+        if self.kind in ("dp", "gc"):
+            seams = dp_seams_stack if self.kind == "dp" else gc_seams_stack
+            return seams(stack.data, stack.masks, stack.corners,
+                         stack.sizes, self.use_grad)
         return voronoi_seams_stack(stack.masks, stack.corners, stack.sizes)

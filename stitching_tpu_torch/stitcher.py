@@ -1,19 +1,27 @@
-"""Public stitching API: `Stitcher`.
+"""Public stitching API: `Stitcher` and `AffineStitcher`.
 
 Port of `stitching_tpu/stitcher.py`: the same settings schema with the
 same defaults, unknown-kwarg `StitchingError`, the ORB match_conf default
-resolution and nfeatures forwarding, and the MEDIUM / LOW / FINAL
-resolution semantics. `device=` takes the place of the JAX package's
-`mesh=`: the pipeline runs on that device, the card by default.
+resolution and nfeatures forwarding, the MEDIUM / LOW / FINAL resolution
+semantics, and `AffineStitcher`'s affine defaults with the override
+warning. `device=` takes the place of the JAX package's `mesh=`: the
+pipeline runs on that device, the card by default.
 
 `Stitcher()` runs with every default setting: ORB, homography matching,
 ray bundle adjustment, horizontal wave correction, the spherical warp, the
-LIR crop, gain_blocks exposure, dp_color seams and the multiband blend.
-`SLICE` and `SLICE2` are two smaller configurations that switch stages off.
-Settings the port does not implement yet raise `NotImplementedError` from
-the component that owns them, naming the setting and the ROADMAP item that
-ports it.
+LIR crop, gain_blocks exposure, dp_color seams and the multiband blend;
+so do the other matchers, estimators, adjusters, wave corrections, all 16
+warp surfaces, the five compensators, the five seam finders and the three
+blenders. `AffineStitcher()` stitches scans: similarity matching, the
+affine estimate and adjuster, the affine warp, no wave correction and no
+exposure compensation. `SLICE` and `SLICE2` are two smaller configurations
+that switch stages off. Settings the port does not implement yet (the
+SIFT/BRISK/AKAZE detectors, timelapse) raise `NotImplementedError` from
+the component that owns them, naming the setting and the ROADMAP item
+that ports it.
 """
+
+import warnings
 
 import torch
 
@@ -23,7 +31,7 @@ from .camera_adjuster import CameraAdjuster
 from .camera_estimator import CameraEstimator
 from .camera_wave_corrector import WaveCorrector
 from .cropper import Cropper
-from .errors import StitchingError
+from .errors import StitchingError, StitchingWarning
 from .exposure_error_compensator import ExposureErrorCompensator
 from .feature_detector import FeatureDetector
 from .feature_matcher import FeatureMatcher
@@ -126,3 +134,28 @@ class Stitcher:
         for arg in kwargs:
             if arg not in self.DEFAULT_SETTINGS:
                 raise StitchingError("Invalid Argument: " + arg)
+
+
+class AffineStitcher(Stitcher):
+    AFFINE_DEFAULTS = {
+        "estimator": "affine",
+        "wave_correct_kind": "no",
+        "matcher_type": "affine",
+        "adjuster": "affine",
+        "warper_type": "affine",
+        "compensator": "no",
+    }
+
+    DEFAULT_SETTINGS = {**Stitcher.DEFAULT_SETTINGS, **AFFINE_DEFAULTS}
+
+    def initialize_stitcher(self, **kwargs):
+        for key, value in kwargs.items():
+            if (key in self.AFFINE_DEFAULTS
+                    and value != self.AFFINE_DEFAULTS[key]):
+                warnings.warn(
+                    f"You are overwriting an affine default "
+                    f"({key}={self.AFFINE_DEFAULTS[key]}) with another "
+                    f"value ({value}). Make sure this is intended",
+                    StitchingWarning,
+                )
+        super().initialize_stitcher(**kwargs)

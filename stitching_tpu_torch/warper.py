@@ -3,8 +3,8 @@
 Port of `stitching_tpu/warper.py`'s engine surface: the 16-surface
 registry, canvas scale = median camera focal, and the `get_K` aspect
 correction for warping at a resolution different from the registration
-one. The warp itself runs batched in `compose.warp_stack`. This slice
-implements the spherical surface; the others raise `NotImplementedError`.
+one. The warp itself runs batched in `compose.warp_stack`, on every
+surface of `ops/warp.WARP_TYPES` (the 15 rotation surfaces and "affine").
 """
 
 from statistics import median
@@ -22,10 +22,6 @@ class Warper:
     def __init__(self, warper_type=DEFAULT_WARP_TYPE):
         if warper_type not in self.WARP_TYPE_CHOICES:
             raise StitchingError("invalid warper type: " + str(warper_type))
-        if warper_type != "spherical":
-            raise NotImplementedError(
-                f"warper_type={warper_type!r} is not ported yet (ROADMAP "
-                "queue 1: other settings)")
         self.warper_type = warper_type
         self.scale = None
 

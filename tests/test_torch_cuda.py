@@ -548,7 +548,8 @@ def _seam_stack(seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("finder", ["dp_color", "dp_colorgrad", "voronoi"])
+@pytest.mark.parametrize("finder", ["dp_color", "dp_colorgrad", "gc_color",
+                                    "gc_colorgrad", "voronoi"])
 def test_seam_finders_cuda_equal_cpu(cuda_device, finder):
     from stitching_tpu_torch.compose import TileStack
     from stitching_tpu_torch.seam_finder import SeamFinder
@@ -597,4 +598,181 @@ def test_blend_stack_cuda_close_to_cpu(cuda_device, kind, strength):
     assert pano.shape == ref.shape and torch.equal(mask.cpu(), ref_mask)
     diff = (pano.cpu().to(torch.int16) - ref.to(torch.int16)).abs()
     assert int(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# This slice's paths on the card (plain PyTorch ops around the same two
+# kernels) against the same code on the CPU, which `test_torch_graphcut.py`,
+# `test_torch_affine.py` and `test_torch_surfaces.py` hold against the JAX
+# package
+# ---------------------------------------------------------------------------
+
+def _cut_grids(P=5, h=24, w=40, seed=0):
+    """Seeded grids whose push-relabel loops end after different numbers
+    of iterations (the last one at once: its terminal edges cancel)."""
+    rng = np.random.RandomState(seed)
+    cap = rng.uniform(0.1, 2.0, (P, 4, h, w)).astype(np.float32)
+    cap[:, 0, :, -1] = 0
+    cap[:, 1, :, 0] = 0
+    cap[:, 2, -1, :] = 0
+    cap[:, 3, 0, :] = 0
+    s = np.zeros((P, h, w), np.float32)
+    t = np.zeros((P, h, w), np.float32)
+    s[:, :, 0] = 100.0
+    t[:, :, -1] = 100.0
+    t[1, :, w // 2] = 2.0
+    s[2, : h // 2, : w // 3] = 50.0
+    t[P - 1] = s[P - 1]
+    return cap, s, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check_every", [1, 8])
+def test_grid_min_cut_cuda_equals_cpu(cuda_device, monkeypatch, check_every):
+    from stitching_tpu_torch.ops import graphcut
+
+    grids = [torch.tensor(a) for a in _cut_grids()]
+    want, want_stats = graphcut.grid_min_cut(*grids)
+    monkeypatch.setattr(graphcut, "CHECK_EVERY", check_every)
+    got, stats = graphcut.grid_min_cut(*(g.to(cuda_device) for g in grids))
+    assert torch.equal(got.cpu(), want)
+    assert stats["iterations"] == want_stats["iterations"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_grad", [False, True])
+def test_seam_cut_pair_coarse_to_fine_cuda_equals_cpu(cuda_device,
+                                                      use_grad):
+    """128 x 192 overlaps: a quarter-size cut first, then the banded
+    full-size one."""
+    from stitching_tpu_torch.ops.graphcut import seam_cut_pair
+
+    rng = np.random.RandomState(4)
+    P, h, w = 2, 128, 192
+    img_i = rng.uniform(0, 255, (P, h, w, 3)).astype(np.float32)
+    img_j = np.clip(img_i + rng.uniform(-90, 90, img_i.shape), 0,
+                    255).astype(np.float32)
+    img_j[:, :, 90:102] = img_i[:, :, 90:102]
+    only_i = np.zeros((P, h, w), bool)
+    only_j = np.zeros((P, h, w), bool)
+    only_i[:, :, :25] = True
+    only_j[:, :, -24:] = True
+    both = ~(only_i | only_j)
+    args = [torch.tensor(a) for a in (img_i, img_j, both, only_i, only_j)]
+    got = seam_cut_pair(*(a.to(cuda_device) for a in args), use_grad)
+    assert torch.equal(got.cpu(), seam_cut_pair(*args, use_grad))
+
+
+@pytest.mark.cuda
+def test_ransac_affine_partial_cuda_equals_cpu(cuda_device):
+    from stitching_tpu_torch.ops.ransac import ransac_affine_partial
+
+    rng = np.random.RandomState(1)
+    P, M = 6, 300
+    src = rng.uniform(0, 1200, (P, M, 2)).astype(np.float32)
+    t = rng.uniform(-0.05, 0.05, P)
+    A = np.stack([np.array([[np.cos(a), -np.sin(a), 600.0 - 40 * k],
+                            [np.sin(a), np.cos(a), 20.0 + 3 * k]])
+                  for k, a in enumerate(t)])
+    dst = (np.einsum("pij,pmj->pmi", A[:, :, :2], src) + A[:, None, :, 2]
+           + rng.normal(0, 0.5, src.shape)).astype(np.float32)
+    out = rng.rand(P, M) < 0.4
+    dst[out] = rng.uniform(0, 1200, (out.sum(), 2))
+    valid = rng.rand(P, M) < 0.9
+    valid[5] = False
+    args = [torch.tensor(a) for a in (src, dst, valid)]
+    seeds = torch.arange(P, dtype=torch.int64) * 7 + 3
+    got = ransac_affine_partial(*(a.to(cuda_device) for a in args),
+                                seeds.to(cuda_device))
+    want = ransac_affine_partial(*args, seeds)
+    for k in ("ok", "inliers", "num_inliers"):
+        assert torch.equal(got[k].cpu(), want[k])
+    assert int(want["ok"].sum()) == 5
+    H, Hw = got["H"].cpu(), want["H"]
+    assert float((H - Hw).abs().max()) <= 1e-4 * float(Hw.abs().max())
+
+
+_SURFACES_TIGHT = ("affine", "plane", "cylindrical", "mercator", "spherical")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", [
+    "affine", "spherical", "plane", "cylindrical", "fisheye",
+    "stereographic", "compressedPlaneA2B1", "compressedPlaneA1.5B1",
+    "compressedPlanePortraitA2B1", "compressedPlanePortraitA1.5B1",
+    "paniniA2B1", "paniniA1.5B1", "paniniPortraitA2B1",
+    "paniniPortraitA1.5B1", "mercator", "transverseMercator"])
+def test_warp_stack_cuda_close_to_cpu(cuda_device, surface):
+    """Every surface's warp (the backward map in plain ops, the sampler
+    kernel) on the card against the CPU's: the same ROIs, masks equal at
+    99.99% of pixels or more, and inside them the values within the bars
+    `test_torch_surfaces.py` holds against the JAX package (the card's
+    transcendentals differ from the CPU's in the last bit)."""
+    from stitching_tpu_torch.compose import warp_stack
+    from stitching_tpu_torch.ops.warp import WARP_TYPES
+
+    assert surface in WARP_TYPES
+    rng = np.random.RandomState(5)
+    n, (w, h) = 3, (256, 192)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    data = np.stack([np.stack([127 + 100 * np.sin(xx / (7 + i + c)
+                                                  + yy / 11.0)
+                               for c in range(3)], -1) for i in range(n)])
+    data = np.round(data + rng.rand(*data.shape) * 20).astype(np.float32)
+    sizes = np.asarray([(w, h)] * n, np.int32)
+    if surface == "affine":
+        Ks = [np.diag([0.4, 0.4, 1.0]).astype(np.float32)] * n
+        Rs = [np.array([[np.cos(a), -np.sin(a), -280.0 * i],
+                        [np.sin(a), np.cos(a), 12.0 * (i % 2)],
+                        [0, 0, 1]], np.float32)
+              for i, a in enumerate((-0.02, 0.0, 0.02))]
+        scale = 0.4
+    else:
+        Ks = [np.array([[240, 0, w / 2], [0, 240, h / 2], [0, 0, 1]],
+                       np.float32)] * n
+        Rs = [np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                        [-np.sin(a), 0, np.cos(a)]], np.float32)
+              for a in (-0.5, 0.0, 0.5)]
+        scale = 240.0
+    cpu = warp_stack(torch.tensor(data), sizes, Ks, Rs, scale, surface)
+    gpu = warp_stack(torch.tensor(data).to(cuda_device), sizes, Ks, Rs,
+                     scale, surface)
+    assert np.array_equal(gpu.corners, cpu.corners)
+    assert np.array_equal(gpu.sizes, cpu.sizes)
+    masks, ref_masks = gpu.masks.cpu(), cpu.masks
+    assert float((masks == ref_masks).float().mean()) >= 0.9999
+    care = (masks > 0) & (ref_masks > 0)
+    assert int(care.sum()) > 0.5 * int((ref_masks > 0).sum())
+    diff = (gpu.data.cpu() - cpu.data)[care].abs()
+    bar = 1e-4 if surface in _SURFACES_TIGHT else 1e-3
+    assert float((diff > 2e-3).float().mean()) <= bar
+    assert float(diff.max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gain", "channel"])
+def test_scalar_gains_cuda_close_to_cpu(cuda_device, kind):
+    """The scalar compensators' overlap statistics and solve on the card
+    give the CPU's gains to 1e-4; applied, the tiles are within 1 LSB."""
+    from stitching_tpu_torch.compose import TileStack, apply_gains_stack
+    from stitching_tpu_torch.exposure_error_compensator import (
+        ExposureErrorCompensator)
+
+    data, masks, corners, sizes = _seam_stack(2)
+    data[1] *= 0.8
+    cpu = TileStack(torch.tensor(data), torch.tensor(masks), corners, sizes)
+    gpu = TileStack(cpu.data.to(cuda_device), cpu.masks.to(cuda_device),
+                    corners, sizes)
+    comps = []
+    for stack in (gpu, cpu):
+        comp = ExposureErrorCompensator(kind, nr_feeds=2)
+        comp.feed_stack([tuple(c) for c in corners], stack)
+        comps.append(comp)
+    np.testing.assert_allclose(comps[0]._gains, comps[1]._gains, rtol=1e-4)
+    assert np.abs(comps[1]._gains - 1).max() > 0.02
+    got = apply_gains_stack(gpu, comps[0]).data.cpu()
+    want = apply_gains_stack(cpu, comps[1]).data
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1.0
     assert float((diff == 0).float().mean()) >= 0.999

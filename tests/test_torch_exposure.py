@@ -125,8 +125,8 @@ def test_plan_gain_arrays_match_jax(fed):
     ref, got = fed
     sizes = np.asarray(FINAL["sizes"])
     mode, want = compose_jax.plan_gain_arrays(ref, sizes, 4, 3)
-    have = compose.plan_gain_arrays(got, sizes, 4)
-    assert mode == "map"
+    have_mode, have = compose.plan_gain_arrays(got, sizes, 4, 3)
+    assert mode == have_mode == "map"
     for h, w in zip(have, want):
         assert h.shape == w.shape and h.dtype == w.dtype
         np.testing.assert_allclose(h, w, atol=1e-4)

@@ -1,7 +1,8 @@
 """The port's seam finders against `stitching_tpu.ops.seam`.
 
-The DP seam scan, the batched DP seams (dp_color, dp_colorgrad) and the
-voronoi seams run in both packages on the same inputs: seeded costs, the
+The DP seam scan, the batched DP seams (dp_color, dp_colorgrad), the
+graph-cut seams (gc_color, gc_colorgrad) and the voronoi seams run in both
+packages on the same inputs: seeded costs, the
 JAX package's LOW tile stack of the rotation fixture (as the default
 `Stitcher` plans it: warped, then cropped), and a seeded three-image stack
 whose overlaps need both orientations and leave pixels that the pairwise
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import stitching_tpu
@@ -65,14 +67,23 @@ def low_stack():
     return jax_engine._crop_tiles(low, st.cropper, 1)
 
 
+# The JAX caches are cleared before each call of the reference's graph cut:
+# in this JAX version a second call of its jitted `_gc_pairs_kernel`, once
+# another variant of it has compiled in the process, fails with "Execution
+# supplied 7 buffers but compiled program expected 9" (a fault of the
+# reference, ROADMAP queue 3).
+
+
 def _port_stack(stack):
     return TileStack(torch.tensor(np.asarray(stack.data)),
                      torch.tensor(np.asarray(stack.masks)),
                      np.asarray(stack.corners), np.asarray(stack.sizes))
 
 
-@pytest.mark.parametrize("finder", ["dp_color", "dp_colorgrad", "voronoi"])
+@pytest.mark.parametrize("finder", ["dp_color", "dp_colorgrad", "gc_color",
+                                    "gc_colorgrad", "voronoi"])
 def test_seams_on_the_low_stack_equal_jax(low_stack, finder):
+    jax.clear_caches()
     want = np.asarray(JaxSeamFinder(finder).find_stack(low_stack))
     got = SeamFinder(finder).find_stack(_port_stack(low_stack))
     assert got.dtype == torch.float32
@@ -170,7 +181,17 @@ def test_no_overlap_keeps_the_warp_masks():
     np.testing.assert_array_equal(got.numpy(), masks)
 
 
-def test_graph_cut_finders_raise_not_implemented():
-    for finder in ("gc_color", "gc_colorgrad"):
-        with pytest.raises(NotImplementedError, match="graph cut"):
-            SeamFinder(finder)
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("use_grad", [False, True])
+def test_gc_seams_three_way_overlap_equal_jax(seed, use_grad):
+    """All three pairs' cuts in one batch, applied in pair order, then
+    `ensure_coverage`: equal to the JAX package's masks."""
+    data, masks, corners, sizes = _three_way(seed)
+    jax.clear_caches()
+    want = np.asarray(js.gc_seams_stack(jnp.asarray(data),
+                                        jnp.asarray(masks), corners, sizes,
+                                        use_grad))
+    got = ts.gc_seams_stack(torch.tensor(data), torch.tensor(masks), corners,
+                            sizes, use_grad).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert ((got > 0) != (masks > 0)).any()

@@ -18,6 +18,7 @@ import torch
 
 import stitching_tpu
 import stitching_tpu_torch
+import stitching_tpu_torch.ops.warp
 from fixtures import rotation_set
 from stitching_tpu import engine as jax_engine
 from stitching_tpu_torch import (SLICE, SLICE2, Stitcher, StitchingError,
@@ -138,17 +139,9 @@ def test_unknown_setting_raises():
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("adjuster", "affine", "other settings"),
-    ("compensator", "gain", "other settings"),
-    ("compensator", "channel", "other settings"),
-    ("finder", "gc_colorgrad", "seams (graph cut)"),
-    ("finder", "gc_color", "seams (graph cut)"),
     ("detector", "sift", "SIFT/BRISK/AKAZE"),
     ("detector", "akaze", "SIFT/BRISK/AKAZE"),
     ("detector", "brisk", "SIFT/BRISK/AKAZE"),
-    ("matcher_type", "affine", "other settings"),
-    ("estimator", "affine", "other settings"),
-    ("warper_type", "cylindrical", "other settings"),
     ("timelapse", "as_is", "timelapse"),
 ])
 def test_unported_setting_raises_not_implemented(setting, value, item):
@@ -171,9 +164,12 @@ def test_default_settings_construct():
 
 @pytest.mark.parametrize("setting,value", [
     ("finder", "dp_color"), ("finder", "dp_colorgrad"),
+    ("finder", "gc_color"), ("finder", "gc_colorgrad"),
     ("finder", "voronoi"), ("blender_type", "multiband"),
-    ("blender_type", "feather"),
-])
+    ("blender_type", "feather"), ("adjuster", "affine"),
+    ("compensator", "gain"), ("compensator", "channel"),
+    ("matcher_type", "affine"), ("estimator", "affine"),
+] + [("warper_type", w) for w in stitching_tpu_torch.ops.warp.WARP_TYPES])
 def test_ported_setting_constructs(setting, value):
     st = Stitcher(device="cpu", **{**SLICE, setting: value})
     assert st.settings[setting] == value
