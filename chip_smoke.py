@@ -11,14 +11,15 @@
 3. drives the port's paths on 8 rendered views of 1600x1200 (the bench
    workload: focal 1400, +-0.6 rad), each once to warm up and once with
    the kernels' launch counters set to 0 just before and read just after,
-   and fails unless each kernel of the path launched:
+   and fails unless each kernel of the path launched as often as the path
+   states (on the downscaled branch the FINAL pass streams per image: one
+   batched LOW warp and one FINAL warp per kept view):
    - `Stitcher(**SLICE).stitch` (the first slice),
    - `Stitcher(**SLICE2).stitch` (bundle adjustment, wave correction,
      crop, block-gain exposure), with its stages timed between syncs,
    - `Stitcher().stitch`, every default setting (adds the dp_color seams
-     and the multiband blend), with its stages timed between syncs, the
-     seam search and the blend inside them, the blend's memory plan and
-     the card's peak memory,
+     and the multiband blend), with the profiler's fenced stage table,
+     the blend's memory plan and the card's peak memory,
    - `Stitcher(finder="gc_color").stitch` (the graph-cut seams), staged
      the same way, with each graph-cut level's iterations, global
      relabels, host syncs and seconds,
@@ -29,23 +30,31 @@
    - `pipeline.register_pair` on the first two views at MEDIUM size,
    - the matchers on float descriptors (128 wide, made from a seed):
      `FeatureMatcher.match_features` and `ops.match.match_pair`;
-4. holds each kernel against its plain PyTorch version on the very inputs
-   the paths gave it, and times kernel, plain version and, where one
-   exists, a PyTorch library call computing the same function (device
-   time per call from a CUDA graph replay; the kernel wrapper's
-   CUDA-event time, host launch included, beside it), and the launch
-   floor: an empty kernel launched as often as the call launches kernels
-   (counted by capturing one call, and held against what the wrapper's
-   module states);
-5. profiles one `SLICE2` stitch and one default stitch (device busy
+4. the slice-6 phases: the streamed FINAL pass against the batched one on
+   the same cameras; `Stitcher.stitch_device` on a prestaged stack; a
+   109.4 MP canvas (6 tiles of 5120x4096, `scripts/giant_bench.py`'s
+   layout) through the streamed monolithic blend against the batched
+   blend of the same stack; X strips on a wide row and Y strips on a tall
+   grid against their monolithic blends; `Stitcher(timelapse="as_is")`
+   on 3 views against the CPU run's frames;
+5. holds each kernel against its plain PyTorch version on the very inputs
+   the paths gave it (the sampler at the batched LOW and the per-image
+   FINAL calls), and times kernel, plain version and, where one exists, a
+   PyTorch library call computing the same function (device time per
+   call from a CUDA graph replay; the kernel wrapper's CUDA-event time,
+   host launch included, beside it), and the launch floor: an empty
+   kernel launched as often as the call launches kernels (counted by
+   capturing one call, and held against what the wrapper's module
+   states);
+6. profiles one `SLICE2` stitch and one default stitch (device busy
    share, the device operations that take longest);
-6. checks the output: the cameras against the rendered ground truth, the
+7. checks the output: the cameras against the rendered ground truth, the
    pair's homography against the rendered one, and the card's panoramas
    against the CPU's on a small input (3 views of 640x480) with the same
    cameras: both slices, the defaults, every other surface, the gain and
    channel compensators, both graph-cut finders and `AffineStitcher` on a
    small scan;
-7. prints the kernels line, the card line and, last, the result line.
+8. prints the kernels line, the card line and, last, the result line.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
@@ -74,6 +83,21 @@ B1_OPS_PER_S = 5.3 * INT8_OPS_PER_S
 
 FOCAL = 1400.0
 MAX_ANGLE = 0.6
+N_VIEWS = 8
+# kernel launches of one stitch on the downscaled branch: one 2-NN call
+# over all pairs, one batched LOW warp and one FINAL warp per kept view
+STITCH_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0,
+                   "bilinear_sample": 1 + N_VIEWS}
+# scripts/giant_bench.py's layout: (rows, cols) of (h, w) tiles at (y, x)
+# steps, a 14480 x 7556 canvas (109.4 MP), blended under the port's
+# default budget (its accumulators pass it)
+GIANT = dict(grid=(3, 2), tile=(5120, 4096), step=(4680, 3460), budget=4e9)
+# strips: a wide row and a tall grid of (h, w) tiles at (y, x) steps, each
+# with a budget under its accumulators' estimate
+STRIPS = {"x": dict(grid=(1, 24), tile=(1200, 1600), step=(0, 1400),
+                    budget=2e9, stream_fetch=True),
+          "y": dict(grid=(8, 2), tile=(1200, 1600), step=(1000, 1400),
+                    budget=1e9, stream_fetch=False)}
 
 
 def card_line():
@@ -686,56 +710,68 @@ class CutRecorder:
         return out
 
 
-def path_stages(name, st, imgs, pano):
-    """A path's stages once more, each fenced, with the seam search
-    (inside the LOW plan) and the FINAL blend (inside the composite) timed
-    between syncs, the graph cut's levels where it runs, the blend's
-    memory plan from `compose._plan_blend` and the card's peak memory over
-    the run. Returns the registration."""
-    from stitching_tpu_torch import compose, engine
+def path_stages(name, st, imgs, pano, table=False):
+    """A path's stages once more under the port's profiler with fences:
+    register / LOW plan / FINAL composite between syncs, and inside them
+    the profiler's stages (the seam search, the FINAL stream of warps and
+    feeds, the banded collapse and copy), the graph cut's levels where it
+    runs, the blend's memory plan from the `StreamComposite` the FINAL
+    pass builds and the card's peak memory over the run. `table` prints
+    the whole stage table. Returns the registration."""
+    from stitching_tpu_torch import engine, profiling
     from stitching_tpu_torch.ops import graphcut
 
-    clock = StageClock()
     plans = []
-    blend = engine.blend_stack
+    stream_cls = engine.StreamComposite
+
+    class Recording(stream_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            plans.append((self.p, self.C))
+
     cut = graphcut.grid_min_cut
-
-    def timed_blend(stack, seams, kind, strength):
-        if kind == "no":               # the LOW crop plan's paste
-            return blend(stack, seams, kind, strength)
-        b, th, tw, c = stack.data.shape
-        plans.append((compose._plan_blend(stack.corners, stack.sizes, b,
-                                          kind, strength, th, tw), c))
-        return clock.wrap("blend_s", blend)(stack, seams, kind, strength)
-
-    st.seam_finder.find_stack = clock.wrap("seam_find_s",
-                                           st.seam_finder.find_stack)
-    engine.blend_stack = timed_blend
+    engine.StreamComposite = Recording
     graphcut.grid_min_cut = levels = CutRecorder(cut)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    reg = engine.register(st, imgs)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    plan = engine.plan_composition(st, reg)
-    torch.cuda.synchronize()
-    t2 = time.time()
-    again = engine.composite(st, reg, plan)
-    torch.cuda.synchronize()
-    t3 = time.time()
-    engine.blend_stack = blend
-    graphcut.grid_min_cut = cut
-    del st.seam_finder.find_stack
+    profiling.enable()
+    profiling.enable_fence()
+    profiling.reset()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        reg = engine.register(st, imgs)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        plan = engine.plan_composition(st, reg)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        again = engine.composite(st, reg, plan)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        report = profiling.get_report()
+    finally:
+        engine.StreamComposite = stream_cls
+        graphcut.grid_min_cut = cut
+        profiling.enable(False)
+        profiling.enable_fence(False)
+        profiling.reset()
     peak = torch.cuda.max_memory_allocated() / 1e9
     wall = t3 - t0
-    shares = {k: v / wall for k, v in clock.seconds.items()}
+    inside = {"seam_find_s": "low/seam_find",
+              "final_stream_s": "final/stream",
+              "final_blend_s": "final/blend"}
     print(f"{name} stages (fenced): register_s={t1 - t0:.4f} "
           f"plan_low_s={t2 - t1:.4f} composite_final_s={t3 - t2:.4f}; "
           "inside them: "
-          + " ".join(f"{k}={v:.4f} ({shares[k]:.3f} of the stages' "
-                     f"{wall:.4f} s)" for k, v in clock.seconds.items()),
+          + " ".join(f"{k}={report[v]['total_s']:.4f} "
+                     f"({report[v]['total_s'] / wall:.3f} of the stages' "
+                     f"{wall:.4f} s)" for k, v in inside.items()),
           flush=True)
+    if table:
+        print(f"{name} stage table (profiler, fenced):", flush=True)
+        for k, v in sorted(report.items(), key=lambda kv: kv[0]):
+            print(f"  {k:<32s} calls={v['calls']:<3d} "
+                  f"total_s={v['total_s']:.4f}", flush=True)
     for shape, stats, sec in levels.levels:
         print(f"{name} graph cut level {shape} (pairs, h, w): "
               f"iterations={stats['iterations']} relabels="
@@ -750,8 +786,8 @@ def path_stages(name, st, imgs, pano):
               for lv in range(p["nb"] + 1))
     win = sum((p["wh"] >> lv) * (p["ww"] >> lv) * (c + 1) * 4
               for lv in range(p["nb"] + 1))
-    print(f"{name} blend plan: kind={p['kind']} nb={p['nb']} window "
-          f"{p['wh']}x{p['ww']} canvas {p['ph']}x{p['pw']} (panorama "
+    print(f"{name} blend plan (streamed): kind={p['kind']} nb={p['nb']} "
+          f"window {p['wh']}x{p['ww']} canvas {p['ph']}x{p['pw']} (panorama "
           f"{p['dh']}x{p['dw']}); accumulators {acc / 1e6:.1f} MB, one "
           f"window's Laplacian and weight pyramids {win / 1e6:.1f} MB; "
           f"card peak allocated over the stages {peak:.3f} GB", flush=True)
@@ -759,6 +795,244 @@ def path_stages(name, st, imgs, pano):
         raise AssertionError(f"two runs of the {name} path gave different "
                              "panoramas")
     return reg
+
+
+def lsb_check(what, got, want, min_equal):
+    """Fails unless two uint8 images have one shape, every value within
+    1 LSB and at least `min_equal` of them equal; prints the count of
+    differing values."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} against "
+                             f"{want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    n_diff = int((diff > 0).sum())
+    equal = 1.0 - n_diff / diff.size
+    print(f"{what}: {n_diff} of {diff.size} values differ (largest "
+          f"{int(diff.max())}), {equal:.6f} equal", flush=True)
+    if diff.max() > 1 or equal < min_equal:
+        raise AssertionError(f"{what}: over 1 LSB or under {min_equal} "
+                             "equal")
+
+
+def streamed_vs_batched(imgs, dev):
+    """The default FINAL pass streamed and batched on one plan: one
+    registration on the uploader's branch and its LOW plan (crop rects,
+    gains, seam masks); a second registration on the prestaged originals
+    takes its cameras. Composited once through the streamed branch (the
+    uploader) and once through the batched one (the prestaged stack), the
+    panoramas are equal: the per-image warps, crops, gains, seam resizes
+    and feeds are the batched stages' own code in the same order."""
+    from stitching_tpu_torch import Stitcher, engine, pipeline
+
+    st = Stitcher()
+    reg_b = engine.register(st, imgs,
+                            prestaged=pipeline.stack_images(imgs, dev))
+    reg_s = engine.register(st, imgs)
+    if reg_s.uploader is None or reg_b.uploader is not None:
+        raise AssertionError("streamed/batched: wrong registration branch")
+    reg_b.cameras = [c.copy() for c in reg_s.cameras]
+    reg_b.scale = reg_s.scale
+    plan = engine.plan_composition(st, reg_s)
+    routes = []
+    streamed = engine._composite_streamed
+    engine._composite_streamed = lambda *a: routes.append(
+        "streamed") or streamed(*a)
+    try:
+        pano_s = engine.composite(st, reg_s, plan)
+        pano_b = engine.composite(st, reg_b, plan)
+    finally:
+        engine._composite_streamed = streamed
+    if routes != ["streamed"]:
+        raise AssertionError(f"streamed/batched: routes {routes}")
+    lsb_check("streamed against batched FINAL pass (one plan)", pano_s,
+              pano_b, 0.9999)
+
+
+def stitch_device_phase(imgs, dev):
+    """`stitch_device` on a prestaged stack: a CUDA uint8 tensor within
+    4 px of the host path's shape (crop off, as the reference's test)."""
+    from stitching_tpu_torch import Stitcher, pipeline
+
+    host = Stitcher(crop=False).stitch(imgs)
+    st = Stitcher(crop=False)
+    stack = pipeline.stack_images(imgs, dev)
+    st.stitch_device(imgs, prestaged=stack)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = st.stitch_device(imgs, prestaged=stack)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    print(f"stitch_device (prestaged, crop=False): wall_s={wall:.4f} "
+          f"pano={tuple(out.shape)} {out.dtype} on {out.device}; host path "
+          f"{host.shape}", flush=True)
+    if (not isinstance(out, torch.Tensor) or out.device.type != dev.type
+            or out.dtype != torch.uint8 or out.dim() != 3
+            or max(abs(a - b) for a, b in zip(out.shape, host.shape)) > 4):
+        raise AssertionError("stitch_device: not a CUDA uint8 panorama of "
+                             "the host path's shape")
+
+
+def tile_layout(grid, tile, step, dev, seed):
+    """A TileStack of random tiles synthesized on the card from a seeded
+    generator: `grid` (rows, cols) of `tile` (h, w) at `step` (y, x)."""
+    from stitching_tpu_torch.compose import TileStack
+
+    (rows, cols), (th, tw), (sy, sx) = grid, tile, step
+    corners = [(c * sx, r * sy) for r in range(rows) for c in range(cols)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data = torch.rand((len(corners), th, tw, 3), generator=gen,
+                      device=dev) * 255
+    masks = torch.full((len(corners), th, tw), 255.0, device=dev)
+    return TileStack(data, masks, np.asarray(corners, np.int64),
+                     np.asarray([(tw, th)] * len(corners), np.int64))
+
+
+def giant_phase(dev, card):
+    """`scripts/giant_bench.py`'s canvas: the multiband blend at strength
+    5 with `stream_fetch` takes the streamed monolithic blend (the windows
+    span more than a third of both axes), held within 1 LSB of the batched
+    blend of the same stack (the budget raised past its accumulators)."""
+    from stitching_tpu_torch import compose
+
+    stack = tile_layout(GIANT["grid"], GIANT["tile"], GIANT["step"], dev, 0)
+    b, th, tw, c = stack.data.shape
+    p = compose._plan_blend(stack.corners, stack.sizes, b, "multiband", 5,
+                            th, tw)
+    bands = []
+    collapse = compose._collapse_band
+    compose._collapse_band = lambda *a, **k: bands.append(a[7:9]) \
+        or collapse(*a, **k)
+    try:
+        compose.blend_stack(stack, None, "multiband", 5, stream_fetch=True,
+                            budget=GIANT["budget"])
+        bands.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got, got_mask = compose.blend_stack(stack, None, "multiband", 5,
+                                            stream_fetch=True,
+                                            budget=GIANT["budget"])
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        compose._collapse_band = collapse
+    if not isinstance(got, np.ndarray) or not bands:
+        raise AssertionError("giant canvas: the streamed monolithic blend "
+                             "did not run")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref, ref_mask = compose.blend_stack(stack, None, "multiband", 5,
+                                        budget=float("inf"))
+    ref, ref_mask = ref.cpu().numpy(), ref_mask.cpu().numpy()
+    wall_b = time.time() - t0
+    mp = got.shape[0] * got.shape[1] / 1e6
+    print(f"giant canvas ({card}): {b} tiles of {th}x{tw} (h x w), panorama "
+          f"{got.shape} ({mp:.1f} MP), nb={p['nb']}, canvas "
+          f"{p['ph']}x{p['pw']}, windows {p['wh']}x{p['ww']}; streamed "
+          f"monolithic blend wall_s={wall:.4f} (to host) in {len(bands)} "
+          f"row bands {bands}; peak allocated {peak:.3f} GB; batched blend "
+          f"wall_s={wall_b:.4f} (to host)", flush=True)
+    lsb_check("giant canvas, streamed against batched", got, ref, 0.999)
+    if not np.array_equal(got_mask, ref_mask):
+        raise AssertionError("giant canvas: coverage masks differ")
+
+
+def strips_phase(dev, card):
+    """X strips on a wide row and Y strips on a tall grid (`STRIPS`), each
+    against the monolithic blend of the same stack within 1 LSB."""
+    from stitching_tpu_torch import compose
+
+    for axis, cfg in STRIPS.items():
+        stack = tile_layout(cfg["grid"], cfg["tile"], cfg["step"], dev, 1)
+        plans = []
+        plan_strips = compose._plan_strips
+        compose._plan_strips = lambda *a: plans.append(plan_strips(*a)) \
+            or plans[-1]
+        try:
+            compose.blend_stack(stack, None, "multiband", 5,
+                                stream_fetch=cfg["stream_fetch"],
+                                budget=cfg["budget"])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got, got_mask = compose.blend_stack(
+                stack, None, "multiband", 5,
+                stream_fetch=cfg["stream_fetch"], budget=cfg["budget"])
+            if not cfg["stream_fetch"]:
+                got, got_mask = got.cpu().numpy(), got_mask.cpu().numpy()
+            wall = time.time() - t0
+        finally:
+            compose._plan_strips = plan_strips
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref, ref_mask = compose.blend_stack(stack, None, "multiband", 5)
+        ref, ref_mask = ref.cpu().numpy(), ref_mask.cpu().numpy()
+        wall_m = time.time() - t0
+        if len(plans) != 2 or plans[-1] is None:
+            raise AssertionError(f"{axis} strips did not run")
+        members = plans[-1][0]
+        fed = sum(len(k) for *_, k in members)
+        print(f"{axis} strips ({card}): {stack.data.shape[0]} tiles, "
+              f"panorama {got.shape}, budget {cfg['budget']:.0e} B: "
+              f"{sum(1 for *_, k in members if k)} strips feeding {fed} "
+              f"windows, wall_s={wall:.4f} (stream_fetch="
+              f"{cfg['stream_fetch']}); monolithic wall_s={wall_m:.4f}",
+              flush=True)
+        lsb_check(f"{axis} strips against the monolithic blend", got, ref,
+                  0.999)
+        if not np.array_equal(got_mask, ref_mask):
+            raise AssertionError(f"{axis} strips: coverage masks differ")
+
+
+def timelapse_phase(imgs):
+    """`Stitcher(timelapse="as_is")` on 3 views written as PNG files: the
+    stitch returns None and writes `fixed_<name>` beside each input; the
+    card's frames with the CPU run's cameras against the CPU run's."""
+    import os
+    import tempfile
+
+    from stitching_tpu_torch import Stitcher, engine, io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        names = {}
+        for where in ("card", "cpu", "stitch"):
+            os.makedirs(os.path.join(tmp, where))
+            names[where] = [os.path.join(tmp, where, f"view{i}.png")
+                            for i in range(3)]
+            for name, im in zip(names[where], imgs[:3]):
+                io.write_image(name, im)
+
+        def frames(where):
+            return [io.read_image(os.path.join(os.path.dirname(n),
+                                               "fixed_" + os.path.basename(n)))
+                    for n in names[where]]
+
+        t0 = time.time()
+        out = Stitcher(timelapse="as_is").stitch(names["stitch"])
+        wall = time.time() - t0
+        written = sorted(f for f in os.listdir(os.path.join(tmp, "stitch"))
+                         if f.startswith("fixed_"))
+        print(f"timelapse: stitch returned {out!r} in {wall:.4f} s, frames "
+              f"{written}", flush=True)
+        if out is not None or written != [f"fixed_view{i}.png"
+                                          for i in range(3)]:
+            raise AssertionError("timelapse: stitch must return None and "
+                                 "write one fixed_ frame per view")
+        st_cpu = Stitcher(device="cpu", timelapse="as_is")
+        reg_cpu = engine.register(st_cpu, names["cpu"])
+        engine.composite(st_cpu, reg_cpu,
+                         engine.plan_composition(st_cpu, reg_cpu))
+        st = Stitcher(timelapse="as_is")
+        reg = engine.register(st, names["card"])
+        reg.cameras = [c.copy() for c in reg_cpu.cameras]
+        st.warper.set_scale(reg.cameras)
+        reg.scale = st.warper.scale
+        if engine.composite(st, reg, engine.plan_composition(st, reg)) \
+                is not None:
+            raise AssertionError("timelapse: composite must return None")
+        for i, (got, want) in enumerate(zip(frames("card"), frames("cpu"))):
+            lsb_check(f"timelapse frame {i} (card against CPU, same "
+                      "cameras)", got, want, 0.999)
 
 
 def counted_run(name, fn, wrappers, expect, recorders=()):
@@ -914,7 +1188,8 @@ def main():
     for w in (two_nn, two_nn_pairs):
         w.launches = 0
 
-    imgs, Rs_true = rotation_set(8, (1600, 1200), FOCAL, MAX_ANGLE, dev)
+    imgs, Rs_true = rotation_set(N_VIEWS, (1600, 1200), FOCAL, MAX_ANGLE,
+                                 dev)
     print(f"rendered {len(imgs)} views of {imgs[0].shape}", flush=True)
 
     # every kernel wrapper, with its inputs recorded at its call sites
@@ -938,7 +1213,7 @@ def main():
     st = Stitcher(**SLICE)
     pano, wall, (nn_calls, _, bs_calls) = drive(
         "slice1", lambda: st.stitch(imgs),
-        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+        STITCH_LAUNCHES)
     mp = pano.shape[0] * pano.shape[1] / 1e6
     print(f"slice1 stitch: wall_s={wall:.4f} pano={pano.shape} mp={mp:.3f} "
           f"mp_per_s={mp / wall:.3f} nonzero_share="
@@ -972,7 +1247,7 @@ def main():
     st2 = Stitcher(**SLICE2)
     pano2, wall2, (nn_calls2, _, bs_calls2) = drive(
         "slice2", lambda: st2.stitch(imgs),
-        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+        STITCH_LAUNCHES)
     mp2 = pano2.shape[0] * pano2.shape[1] / 1e6
     share2 = float((pano2.max(-1) > 0).mean())
     print(f"slice2 stitch: wall_s={wall2:.4f} pano={pano2.shape} "
@@ -1028,7 +1303,7 @@ def main():
     st3 = Stitcher()
     pano3, wall3, (nn_calls3, _, bs_calls3) = drive(
         "default", lambda: st3.stitch(imgs),
-        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+        STITCH_LAUNCHES)
     mp3 = pano3.shape[0] * pano3.shape[1] / 1e6
     print(f"default stitch: wall_s={wall3:.4f} pano={pano3.shape} "
           f"mp={mp3:.3f} mp_per_s={mp3 / wall3:.3f} nonzero_share="
@@ -1038,7 +1313,7 @@ def main():
             or np.array_equal(pano3, pano2)):
         raise AssertionError(f"default panorama {pano3.dtype} {pano3.shape}: "
                              f"not a blend of slice 2's {pano2.shape}")
-    reg3 = path_stages("default", st3, imgs, pano3)
+    reg3 = path_stages("default", st3, imgs, pano3, table=True)
     check_cameras("default", reg3.cameras, Rs_true, 0.02)
     profile_stitch(st3, imgs)
 
@@ -1046,7 +1321,7 @@ def main():
     st_gc = Stitcher(finder="gc_color")
     pano_gc, wall_gc, (nn_gc, _, bs_gc) = drive(
         "gc", lambda: st_gc.stitch(imgs),
-        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+        STITCH_LAUNCHES)
     mp_gc = pano_gc.shape[0] * pano_gc.shape[1] / 1e6
     print(f"gc stitch: wall_s={wall_gc:.4f} pano={pano_gc.shape} "
           f"mp={mp_gc:.3f} mp_per_s={mp_gc / wall_gc:.3f}", flush=True)
@@ -1062,7 +1337,7 @@ def main():
     st_cyl = Stitcher(warper_type="cylindrical")
     pano_cyl, wall_cyl, (nn_cyl, _, bs_cyl) = drive(
         "surfaces", lambda: st_cyl.stitch(imgs),
-        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+        STITCH_LAUNCHES)
     mp_cyl = pano_cyl.shape[0] * pano_cyl.shape[1] / 1e6
     print(f"surfaces (cylindrical) stitch: wall_s={wall_cyl:.4f} "
           f"pano={pano_cyl.shape} mp={mp_cyl:.3f} mp_per_s="
@@ -1078,12 +1353,12 @@ def main():
     check_cameras("surfaces", reg_cyl.cameras, Rs_true, 0.02)
 
     # ---- path 6: AffineStitcher on a scan ----------------------------
-    scan, offsets = scan_set(8, (1600, 1200))
+    scan, offsets = scan_set(N_VIEWS, (1600, 1200))
     print(f"scan set: {len(scan)} crops of {scan[0].shape}", flush=True)
     st_af = AffineStitcher()
     pano_af, wall_af, (nn_af, _, bs_af) = drive(
         "affine", lambda: st_af.stitch(scan),
-        {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2})
+        STITCH_LAUNCHES)
     mp_af = pano_af.shape[0] * pano_af.shape[1] / 1e6
     print(f"affine stitch: wall_s={wall_af:.4f} pano={pano_af.shape} "
           f"mp={mp_af:.3f} mp_per_s={mp_af / wall_af:.3f} nonzero_share="
@@ -1147,6 +1422,19 @@ def main():
     match.two_nn = rec_rows.fn
     compose.bilinear_sample = rec_bs.fn
 
+    # ---- slice 6: streamed against batched, the device entry, the
+    # giant canvas, strips and timelapse --------------------------------
+    for name, phase in (
+            ("streamed/batched", lambda: streamed_vs_batched(imgs, dev)),
+            ("stitch_device", lambda: stitch_device_phase(imgs, dev)),
+            ("giant", lambda: giant_phase(dev, card)),
+            ("strips", lambda: strips_phase(dev, card)),
+            ("timelapse", lambda: timelapse_phase(imgs))):
+        t0 = time.time()
+        phase()
+        torch.cuda.empty_cache()
+        print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)
+
     # ---- small input: the card against the CPU, same cameras ---------
     small, _ = rotation_set(3, (640, 480), 600.0, 0.5, dev)
     small_scan, _ = scan_set(3, (640, 480))
@@ -1193,13 +1481,20 @@ def main():
     # ---- every kernel against its plain version at the paths' inputs --
     new_nn = {"gc": nn_gc, "surfaces": nn_cyl, "affine": nn_af}
     new_bs = bs_gc + bs_cyl + bs_af
+    per_stitch = STITCH_LAUNCHES["bilinear_sample"]
     if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(nn_calls3) != 1
-            or len(bs_calls) != 2 or len(bs_calls2) != 2
-            or len(bs_calls3) != 2 or len(rows_calls) != 2
+            or len(bs_calls) != per_stitch or len(bs_calls2) != per_stitch
+            or len(bs_calls3) != per_stitch or len(rows_calls) != 2
             or len(fnn_calls) != 1 or len(frows_calls) != 2
             or any(len(c) != 1 for c in new_nn.values())
-            or len(new_bs) != 6):
+            or len(new_bs) != 3 * per_stitch):
         raise AssertionError("kernel calls were not recorded")
+    # the sampler's calls: one batched LOW warp, then B = 1 FINAL warps
+    batches = [c[0][0].shape[0] for c in bs_calls3]
+    if batches != [N_VIEWS] + [1] * N_VIEWS:
+        raise AssertionError(f"sampler batches {batches} on the default "
+                             "path: expected the batched LOW warp and one "
+                             "FINAL warp per view")
     equal_two_nn_pairs(nn_calls[0], "two_nn_pairs (binary), slice1's call")
     equal_two_nn_pairs(nn_calls3[0], "two_nn_pairs (binary), the default "
                        "path's call")

@@ -6,8 +6,9 @@ Runs `chip_smoke.main()` with the port on the CPU: `torch.cuda` and the
 CUDA-only measurement aids (kernel builds, the boundary phase, graph-replay
 timings, launch capture, the profiler) are stubbed, the launch counts are
 not checked (a CPU tensor runs a kernel's plain version, which does not
-count), and the 8-view workloads shrink to 3 views at the bench's spacing
-between neighbours and 3 scan crops. It finds wrong shapes, arguments and
+count), the 8-view workloads shrink to 3 views at the bench's spacing
+between neighbours and 3 scan crops, and the giant canvas and the strip
+layouts to an eighth of their size (under a 1-byte budget). It finds wrong shapes, arguments and
 control flow in the script and in the paths it drives; it can say nothing
 of the kernels or of any time. Takes 2-3 minutes on a few cores.
 """
@@ -50,6 +51,7 @@ def _stub_torch():
     fake.cuda = types.SimpleNamespace(
         is_available=lambda: True, synchronize=lambda: None, Event=_Event,
         reset_peak_memory_stats=lambda: None, max_memory_allocated=lambda: 0,
+        empty_cache=lambda: None,
         get_device_name=lambda i=0: "CPU rehearsal",
         device_count=lambda: 1)
     return fake
@@ -80,12 +82,22 @@ def main():
     cs.two_nn_launches = lambda *args, **kwargs: 1
     cs.profile_stitch = lambda st, imgs: print("profile: CUDA only")
     cs.counted_run = counted_run
-    rotation_set, scan_set = cs.rotation_set, cs.scan_set
+    rotation_set = cs.rotation_set
     # 3 views with the 8-view set's spacing between neighbours
+    views = cs.N_VIEWS
+    cs.N_VIEWS = 3
+    cs.STITCH_LAUNCHES = dict(cs.STITCH_LAUNCHES, bilinear_sample=4)
     cs.rotation_set = lambda n, size, focal, angle, device: (
-        rotation_set(3, size, focal, angle * 2 / 7, "cpu") if n == 8
+        rotation_set(3, size, focal, angle * 2 / (views - 1), "cpu")
+        if size == (1600, 1200)
         else rotation_set(n, size, focal, angle, "cpu"))
-    cs.scan_set = lambda n, size, seed=0: scan_set(min(n, 3), size, seed)
+    cs.GIANT = dict(grid=(3, 2), tile=(640, 512), step=(585, 433),
+                    budget=1)
+    cs.STRIPS = {
+        "x": dict(grid=(1, 24), tile=(150, 200), step=(0, 175), budget=1,
+                  stream_fetch=True),
+        "y": dict(grid=(8, 2), tile=(150, 200), step=(125, 175), budget=1,
+                  stream_fetch=False)}
     init = stitcher.Stitcher.__init__
     stitcher.Stitcher.__init__ = (
         lambda self, device="cpu", **kw: init(self, device="cpu", **kw))

@@ -114,7 +114,8 @@ def affine_end_to_end():
     st = AffineStitcher(crop=False, device="cpu")
     own = engine.register(st, imgs)
     reg = engine._register_cameras(st, own.images, own.stack, feats,
-                                   matches, low_stack=own.low_stack)
+                                   matches, uploader=own.uploader,
+                                   low_stack=own.low_stack)
     pano = engine.composite(st, reg, engine.plan_composition(st, reg))
     gap = max(float(np.abs(a.R - b.R).max())
               for a, b in zip(reg.cameras, reg_ref.cameras))

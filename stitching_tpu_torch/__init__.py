@@ -4,7 +4,9 @@ The port of `stitching_tpu` to one NVIDIA H100, slice by slice. Public
 API: `Stitcher`, which runs with its default settings, `AffineStitcher`
 for scans, and `SLICE` and `SLICE2`, two smaller configurations (no seams
 and no blend; slice 1 also without adjuster, wave correction, crop and
-exposure); `pipeline.register_pair` registers one pair of frames.
+exposure); `Stitcher.stitch_device` keeps the panorama on the card;
+`pipeline.register_pair` registers one pair of frames; `profiling` times
+the engine's stages.
 """
 
 from .errors import StitchingError, StitchingWarning  # noqa: F401

@@ -1,8 +1,7 @@
-"""Batched compositing on the card: warp, crop, gains, seam masks, blend.
+"""Compositing on the card: warp, crop, gains, seam masks, blend.
 
-Port of the parts of `stitching_tpu/compose.py` that the slices run. Every
-stage is one batched pass over a stacked tile batch that stays in device
-memory:
+Port of `stitching_tpu/compose.py` for one card. The batched stages are
+one pass over a stacked tile batch that stays in device memory:
 
 - `warp_stack`: all images warp onto the surface at once. The backward map
   (`_bwd_coords`) and the validity masks are batched tensor code; the
@@ -15,9 +14,19 @@ memory:
   its Laplacian pyramid times its seam mask's Gaussian pyramid added into
   per-level canvases, then one normalise-and-collapse), the feather blend
   (distance-transform weights) or the paste composite ("no"), tile after
-  tile in batch order, then one uint8 conversion. The panorama leaves the
-  card once. A canvas whose accumulators exceed the reference's 4 GB blend
-  budget raises: its strip and streamed routes are not ported.
+  tile in batch order, then one uint8 conversion. A canvas whose
+  accumulators pass `BLEND_BUDGET_BYTES` blends in X or Y strips
+  (`_blend_strips`), or, when its windows span more than a third of both
+  axes, as one canvas fed in row order whose finished row bands collapse
+  and leave the card while later tiles feed (`_blend_monolithic_stream`).
+
+The streamed stages do the same per image, as the reference's FINAL pass
+schedules them: `warp_single` / `warp_stack_streamed` warp each image as
+its upload lands (`transfer.Uploader`), and `StreamComposite` feeds it
+into the blend's accumulators at once. Both run the batched stages' own
+per-image code (the B = 1 warp, `_mb_feed_one`, `_feather_feed_one`,
+`_paste_feed_one`) in image order, so the streamed panorama equals the
+batched one value for value.
 
 Tiles share one 64-bucketed (B, TH, TW, C) shape; true per-image corners
 and sizes ride along as host metadata.
@@ -34,10 +43,15 @@ from .ops.fma import fma
 from .ops.kernels.bilinear_sample import bilinear_sample
 from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
 from .ops.warp import PROJECTORS, warp_roi
+from .pipeline import DeviceStack, resize_stack
 
 
 def _round_up(x, m=64):
     return int(-(-x // m) * m)
+
+
+def _to_u8(img):
+    return torch.round(img).clamp(0, 255).to(torch.uint8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +68,16 @@ class TileStack:
     masks: torch.Tensor
     corners: np.ndarray
     sizes: np.ndarray
+
+    def to_host(self):
+        """Lists of per-image uint8 (img, mask) host arrays cropped to the
+        true sizes: the pixels convert to uint8 on the card, so one copy
+        moves a quarter of the bytes."""
+        data = _to_u8(self.data).cpu().numpy()
+        masks = self.masks.to(torch.uint8).cpu().numpy()
+        imgs = [data[i, :h, :w] for i, (w, h) in enumerate(self.sizes)]
+        ms = [masks[i, :h, :w] for i, (w, h) in enumerate(self.sizes)]
+        return imgs, ms
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +154,15 @@ def _warp_stack_kernel(data, src_sizes, k_rinv, tls, dst_sizes, inv_scale,
     return out, mask
 
 
+def _k_rinv(K, R, warper_type):
+    """The backward map's matrix K R^-1, float32; the affine backward map
+    is p = K A (u, v, 1)."""
+    K64 = np.asarray(K, np.float64)
+    R64 = np.asarray(R, np.float64)
+    return (K64 @ R64 if warper_type == "affine"
+            else K64 @ np.linalg.inv(R64)).astype(np.float32)
+
+
 def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
     """Warp the whole padded image stack in one batched pass.
 
@@ -145,11 +178,7 @@ def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
     tw = _round_up(int(dsizes[:, 0].max()))
     k_rinv = np.zeros((b, 3, 3), np.float32)
     for i in range(n):
-        K64 = np.asarray(Ks[i], np.float64)
-        R64 = np.asarray(Rs[i], np.float64)
-        # the affine backward map is p = K A (u, v, 1)
-        k_rinv[i] = (K64 @ R64 if warper_type == "affine"
-                     else K64 @ np.linalg.inv(R64))
+        k_rinv[i] = _k_rinv(Ks[i], Rs[i], warper_type)
     tls = np.zeros((b, 2), np.float32)
     tls[:n] = corners
     # padded batch slots get a zero ROI, hence an all-zero mask
@@ -164,9 +193,84 @@ def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
                      np.asarray(dsizes[:n]))
 
 
+def warp_single(raw, size_wh, K, R, corner, dsize, scale, warper_type,
+                th, tw, channels=None):
+    """Resize and warp ONE image: a (1, th, tw, C) tile and a (1, th, tw)
+    mask, the B = 1 instance of `warp_stack` on `resize_stack`'s output,
+    so its values equal the batched path's.
+
+    raw: (h, w) or (h, w, C) uint8/float tensor on the card; size_wh: the
+    target (w, h); `channels` = 3 widens a gray image as `stack_images`
+    does in a mixed set."""
+    img = raw.to(torch.float32)
+    if img.dim() == 2:
+        img = img[..., None]
+    if channels == 3 and img.shape[-1] == 1:
+        img = img.expand(-1, -1, 3).contiguous()
+    w, h = int(size_wh[0]), int(size_wh[1])
+    src = resize_stack(
+        DeviceStack(img[None], np.asarray([[img.shape[1], img.shape[0]]],
+                                          np.int32)),
+        np.asarray([[w, h]], np.int32))
+    dev = img.device
+    return _warp_stack_kernel(
+        src.data, torch.as_tensor([[w, h]], dtype=torch.int32, device=dev),
+        torch.as_tensor(_k_rinv(K, R, warper_type)[None], device=dev),
+        torch.as_tensor(np.asarray([corner], np.float32), device=dev),
+        torch.as_tensor(np.asarray([dsize], np.int32), device=dev),
+        float(np.float32(1.0 / scale)), th=th, tw=tw,
+        warper_type=warper_type)
+
+
+def warp_stack_streamed(source, sizes, Ks, Rs, scale,
+                        warper_type) -> TileStack:
+    """Per-image warp paced by an upload stream.
+
+    source: a `transfer.Uploader` (`image(i)` waits until image i has
+    landed); sizes: per-image (w, h) at the target resolution. Each image
+    warps as soon as it lands, through `warp_single` at the tile shape of
+    the whole set, so the stack equals `warp_stack`'s."""
+    n = len(Ks)
+    sizes = [tuple(map(int, s)) for s in sizes]
+    corners, dsizes = plan_warp_rois(sizes, Ks, Rs, scale, warper_type)
+    th = _round_up(int(dsizes[:, 1].max()))
+    tw = _round_up(int(dsizes[:, 0].max()))
+    tiles, masks = [], []
+    for i in range(n):
+        tile, mask = warp_single(source.image(i), sizes[i], Ks[i], Rs[i],
+                                 corners[i], dsizes[i], scale, warper_type,
+                                 th, tw, channels=source.channels)
+        tiles.append(tile)
+        masks.append(mask)
+    return TileStack(torch.cat(tiles), torch.cat(masks), np.asarray(corners),
+                     np.asarray(dsizes))
+
+
 # ---------------------------------------------------------------------------
-# Batched crop
+# Crop
 # ---------------------------------------------------------------------------
+
+def crop_shape(rects, th, tw):
+    """The common (ch, cw) of tiles cropped to `rects` out of (th, tw)
+    tiles, and the bottom/right padding (pad_h, pad_w) under which every
+    (ch, cw) slice starts exactly at its rect origin: no clamping, so
+    content never shifts against corners/sizes."""
+    ch = _round_up(max(r[3] for r in rects))
+    cw = _round_up(max(r[2] for r in rects))
+    return (ch, cw, max(0, max(r[1] for r in rects) + ch - th),
+            max(0, max(r[0] for r in rects) + cw - tw))
+
+
+def slice_tiles(data, masks, rects, ch, cw, pad_h, pad_w):
+    """(B, ch, cw, C) tiles and (B, ch, cw) masks: tile i from rect i's
+    origin, under the padding of `crop_shape`."""
+    data = F.pad(data, (0, 0, 0, pad_w, 0, pad_h))
+    masks = F.pad(masks, (0, pad_w, 0, pad_h))
+    return (torch.stack([data[i, r[1]:r[1] + ch, r[0]:r[0] + cw]
+                         for i, r in enumerate(rects)]),
+            torch.stack([masks[i, r[1]:r[1] + ch, r[0]:r[0] + cw]
+                         for i, r in enumerate(rects)]))
+
 
 def slice_stack(stack: TileStack, rects) -> TileStack:
     """Crop each tile to its (x, y, w, h) rect; corners/sizes updated by the
@@ -175,19 +279,9 @@ def slice_stack(stack: TileStack, rects) -> TileStack:
     n = len(rects)
     b = stack.data.shape[0]
     rects = rects + [(0, 0, 1, 1)] * (b - n)  # padded batch slots
-    ch = _round_up(max(r[3] for r in rects))
-    cw = _round_up(max(r[2] for r in rects))
-    th, tw = int(stack.data.shape[1]), int(stack.data.shape[2])
-    # Pad bottom/right so every (ch, cw) slice starts exactly at its rect
-    # origin: no clamping, so content never shifts against corners/sizes.
-    pad_h = max(0, max(r[1] for r in rects) + ch - th)
-    pad_w = max(0, max(r[0] for r in rects) + cw - tw)
-    tiles = F.pad(stack.data, (0, 0, 0, pad_w, 0, pad_h))
-    masks = F.pad(stack.masks, (0, pad_w, 0, pad_h))
-    tiles = torch.stack([tiles[i, r[1]:r[1] + ch, r[0]:r[0] + cw]
-                         for i, r in enumerate(rects)])
-    masks = torch.stack([masks[i, r[1]:r[1] + ch, r[0]:r[0] + cw]
-                         for i, r in enumerate(rects)])
+    shape = crop_shape(rects, int(stack.data.shape[1]),
+                       int(stack.data.shape[2]))
+    tiles, masks = slice_tiles(stack.data, stack.masks, rects, *shape)
     sizes = np.asarray([(r[2], r[3]) for r in rects[:n]], np.int64)
     return TileStack(tiles, masks, np.asarray(stack.corners), sizes)
 
@@ -362,7 +456,7 @@ def resize_seam_masks_stack(seam_masks_low, final_stack: TileStack):
 
 
 # ---------------------------------------------------------------------------
-# Blending
+# Blending: the plan and the per-image feeds
 # ---------------------------------------------------------------------------
 
 def _canvas_roi(corners, sizes):
@@ -391,34 +485,15 @@ def _shifted_tile_window(tile, seam, shift, size):
     return win, sm
 
 
-def _paste_feed_batched(tiles, seams, offs, shifts, sizes, n, ph, pw):
-    """Paste the first n tiles' seam-owned pixels onto the canvas, in batch
-    order (later tiles overwrite earlier ones). The canvas updates in
-    place."""
-    C = tiles.shape[-1]
-    TH, TW = tiles.shape[1], tiles.shape[2]
-    dev = tiles.device
-    canvas = torch.zeros((ph, pw, C), dtype=torch.float32, device=dev)
-    cmask = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
-    for i in range(n):
-        win, sm = _shifted_tile_window(tiles[i], seams[i], shifts[i],
-                                       sizes[i])
-        inside = sm > 0
-        oy, ox = int(offs[i, 1]), int(offs[i, 0])
-        region = canvas[oy:oy + TH, ox:ox + TW]
-        region.copy_(torch.where(inside[..., None], win, region))
-        mreg = cmask[oy:oy + TH, ox:ox + TW]
-        mreg.masked_fill_(inside, 255.0)
-    return canvas, cmask
-
-
 # the multiband window's bucket (the reference's `_BUCKET`): the window
 # size fixes the clamped window offsets and the reflect context, so every
 # coarse band depends on it
 _MB_BUCKET = 128
-# accumulator bytes over which the reference leaves the batched blend for
-# X/Y strips or a streamed fetch (its default `STITCHING_TPU_BLEND_BUDGET`)
-_BLEND_BUDGET_BYTES = 4e9
+# accumulator bytes over which `blend_stack` leaves the batched blend for
+# X/Y strips or the streamed monolithic blend, and over which the engine's
+# FINAL pass leaves the streamed composite: the reference's default
+# `STITCHING_TPU_BLEND_BUDGET`. The engine reads it at each call
+BLEND_BUDGET_BYTES = 4e9
 _EPS = 1e-5
 
 
@@ -496,71 +571,358 @@ def _mb_window(tile, seam, shift, size, wh, ww):
     return win, sm
 
 
-def _mb_feed(tiles, seams, offs, shifts, sizes, n, nb, wh, ww, ph, pw):
-    """Feed the tiles into per-level multiband accumulators, one window
-    at a time in batch order (so the float sums are the reference's scan
-    and only one window's pyramids are live). Returns (band_acc, band_w),
-    level l of shape (ph >> l, pw >> l, C) and (..., 1)."""
-    C = tiles.shape[-1]
-    dev = tiles.device
-    band_acc = [torch.zeros((ph >> lv, pw >> lv, C), dtype=torch.float32,
-                            device=dev) for lv in range(nb + 1)]
-    band_w = [torch.zeros((ph >> lv, pw >> lv, 1), dtype=torch.float32,
-                          device=dev) for lv in range(nb + 1)]
-    # only the n real tiles: padded batch slots have empty seams
-    for i in range(n):
-        win, sm = _mb_window(tiles[i], seams[i], shifts[i], sizes[i], wh, ww)
-        laps = build_laplacian(win, nb)
-        wpyr = build_gaussian((sm > 0).to(torch.float32)[..., None], nb)
-        for lv in range(nb + 1):
-            yy, xx = int(offs[i, 1]) >> lv, int(offs[i, 0]) >> lv
-            bh, bw = laps[lv].shape[0], laps[lv].shape[1]
-            band_acc[lv][yy:yy + bh, xx:xx + bw] += laps[lv] * wpyr[lv]
-            band_w[lv][yy:yy + bh, xx:xx + bw] += wpyr[lv]
-    return band_acc, band_w
+def _new_state(kind, nb, ph, pw, C, device):
+    """Zeroed accumulators: per-level (band_acc, band_w) lists for
+    multiband, (acc, wsum) for feather, (canvas, cmask) for the paste."""
+    if kind == "multiband":
+        return ([torch.zeros((ph >> lv, pw >> lv, C), dtype=torch.float32,
+                             device=device) for lv in range(nb + 1)],
+                [torch.zeros((ph >> lv, pw >> lv, 1), dtype=torch.float32,
+                             device=device) for lv in range(nb + 1)])
+    return (torch.zeros((ph, pw, C), dtype=torch.float32, device=device),
+            torch.zeros((ph, pw), dtype=torch.float32, device=device))
 
 
-def _mb_collapse(band_acc, band_w):
+def _mb_feed_one(band_acc, band_w, tile, seam, off, shift, size, nb, wh,
+                 ww):
+    """One tile's window into the multiband accumulators, in place: its
+    Laplacian pyramid times its seam mask's Gaussian pyramid, added level
+    by level at the window's offset."""
+    win, sm = _mb_window(tile, seam, shift, size, wh, ww)
+    laps = build_laplacian(win, nb)
+    wpyr = build_gaussian((sm > 0).to(torch.float32)[..., None], nb)
+    for lv in range(nb + 1):
+        yy, xx = int(off[1]) >> lv, int(off[0]) >> lv
+        bh, bw = laps[lv].shape[0], laps[lv].shape[1]
+        band_acc[lv][yy:yy + bh, xx:xx + bw] += laps[lv] * wpyr[lv]
+        band_w[lv][yy:yy + bh, xx:xx + bw] += wpyr[lv]
+
+
+def _feather_feed_one(acc, wsum, tile, seam, off, shift, size, sharpness):
+    """One tile into the feather accumulators, in place, weighted by its
+    L1 distance to the edge of its seam mask times `sharpness`, clipped
+    at 1."""
+    TH, TW = tile.shape[0], tile.shape[1]
+    win, sm = _shifted_tile_window(tile, seam, shift, size)
+    m = (sm > 0).to(torch.float32)
+    # the reference's float32 scalar
+    wgt = (distance_transform_l1(m) * float(np.float32(sharpness))
+           ).clamp_max(1.0)
+    wgt = torch.where(m > 0, wgt, 0.0)
+    oy, ox = int(off[1]), int(off[0])
+    acc[oy:oy + TH, ox:ox + TW] += win * wgt[..., None]
+    wsum[oy:oy + TH, ox:ox + TW] += wgt
+
+
+def _paste_feed_one(canvas, cmask, tile, seam, off, shift, size):
+    """One tile's seam-owned pixels pasted onto the canvas, in place
+    (later tiles overwrite earlier ones)."""
+    TH, TW = tile.shape[0], tile.shape[1]
+    win, sm = _shifted_tile_window(tile, seam, shift, size)
+    inside = sm > 0
+    oy, ox = int(off[1]), int(off[0])
+    region = canvas[oy:oy + TH, ox:ox + TW]
+    region.copy_(torch.where(inside[..., None], win, region))
+    cmask[oy:oy + TH, ox:ox + TW].masked_fill_(inside, 255.0)
+
+
+def _feed_one(state, p, i, tile, seam, off):
+    """Image i of plan `p` into `state` at window offset `off`."""
+    a, b = state
+    shift, size = p["shifts"][i], p["szs"][i]
+    if p["kind"] == "multiband":
+        _mb_feed_one(a, b, tile, seam, off, shift, size, p["nb"], p["wh"],
+                     p["ww"])
+    elif p["kind"] == "feather":
+        _feather_feed_one(a, b, tile, seam, off, shift, size,
+                          p["sharpness"])
+    else:
+        _paste_feed_one(a, b, tile, seam, off, shift, size)
+
+
+def _mb_collapse_kernel(band_acc, band_w, nb):
     """Normalise each band by its weight and collapse the pyramid.
     Returns the canvas (ph, pw, C) and the level-0 weight map (ph, pw)."""
-    laps = [a / (w + _EPS) for a, w in zip(band_acc, band_w)]
+    laps = [band_acc[lv] / (band_w[lv] + _EPS) for lv in range(nb + 1)]
     return collapse_laplacian(laps), band_w[0][..., 0]
 
 
-def _feather_feed(tiles, seams, offs, shifts, sizes, n, sharpness, ph, pw):
-    """Feather accumulators: each tile weighted by its L1 distance to the
-    edge of its seam mask times `sharpness`, clipped at 1, added in batch
-    order. Returns (acc (ph, pw, C), wsum (ph, pw))."""
-    C = tiles.shape[-1]
-    TH, TW = tiles.shape[1], tiles.shape[2]
-    dev = tiles.device
-    acc = torch.zeros((ph, pw, C), dtype=torch.float32, device=dev)
-    wsum = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
-    sharp = float(np.float32(sharpness))   # the reference's float32 scalar
-    for i in range(n):
-        win, sm = _shifted_tile_window(tiles[i], seams[i], shifts[i],
-                                       sizes[i])
-        m = (sm > 0).to(torch.float32)
-        wgt = (distance_transform_l1(m) * sharp).clamp_max(1.0)
-        wgt = torch.where(m > 0, wgt, 0.0)
-        oy, ox = int(offs[i, 1]), int(offs[i, 0])
-        acc[oy:oy + TH, ox:ox + TW] += win * wgt[..., None]
-        wsum[oy:oy + TH, ox:ox + TW] += wgt
-    return acc, wsum
+def _feather_norm_kernel(acc, wsum):
+    return acc / wsum[..., None].clamp_min(_EPS), wsum
 
 
-def _to_u8(img):
-    return torch.round(img).clamp(0, 255).to(torch.uint8)
+def _finish_state(state, kind, nb):
+    """(canvas, weight map) of finished accumulators."""
+    if kind == "multiband":
+        return _mb_collapse_kernel(*state, nb)
+    if kind == "feather":
+        return _feather_norm_kernel(*state)
+    return state
 
 
-def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength):
+def _wmap_to_u8(wmap):
+    return (wmap > _EPS).to(torch.uint8) * 255
+
+
+def _blend_canvas(p, tiles, seams, offs, idx, ph, pw):
+    """The batched blend over canvas (ph, pw): the tiles `idx` fed in that
+    order at window offsets `offs` (one row per entry of idx), then one
+    normalise-and-collapse. Returns (canvas (ph, pw, C), wmap (ph, pw))."""
+    state = _new_state(p["kind"], p["nb"], ph, pw, tiles.shape[-1],
+                       tiles.device)
+    for k, i in enumerate(idx):
+        _feed_one(state, p, i, tiles[i], seams[i], offs[k])
+    return _finish_state(state, p["kind"], p["nb"])
+
+
+# ---------------------------------------------------------------------------
+# Device -> host copies that overlap later work
+# ---------------------------------------------------------------------------
+
+class _HostFetch:
+    """Copies finished panorama bands to host memory while later work runs.
+
+    On the card each band's copy waits on an event recorded on the caller's
+    (compute) stream and runs on a side stream into pinned host memory;
+    the band tensors are marked as used on that stream, so the caching
+    allocator keeps them until their copy is done. On the CPU a band is
+    copied at once. `assemble` waits for every copy and writes the bands
+    into host (pano, mask) arrays."""
+
+    def __init__(self, device):
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self.bands = []     # (axis, lo, hi, pano part, mask part, done)
+
+    def submit(self, axis, lo, hi, seg, wseg):
+        if self.stream is None:
+            self.bands.append((axis, lo, hi, seg.numpy(), wseg.numpy(),
+                               None))
+            return
+        ready = torch.cuda.Event()
+        ready.record()
+        parts = []
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            for t in (seg, wseg):
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                t.record_stream(self.stream)
+                parts.append(host)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self.bands.append((axis, lo, hi, *parts, done))
+
+    def assemble(self, dh, dw, C):
+        pano = np.zeros((dh, dw, C), np.uint8)
+        wmask = np.zeros((dh, dw), np.uint8)
+        for axis, lo, hi, seg, wseg, done in self.bands:
+            if done is not None:
+                done.synchronize()
+                seg, wseg = seg.numpy(), wseg.numpy()
+            if axis == 0:
+                pano[lo:hi] = seg
+                wmask[lo:hi] = wseg
+            else:
+                pano[:, lo:hi] = seg
+                wmask[:, lo:hi] = wseg
+        self.bands = []
+        return pano, wmask
+
+
+def _collapse_band(state, kind, nb, m, halo, pa, d_other, r0, r1, axis=0):
+    """Span [r0, r1) of the final panorama along `axis` (0 = rows,
+    1 = columns) as (seg_u8, wseg_u8), collapsed from accumulator `state`
+    over the span widened by `halo` (the pyr_up chain's support) and
+    aligned to the coarsest level, so it equals the full collapse there.
+    `pa` is the accumulator extent along the axis; `d_other` the
+    panorama extent across it."""
+    a0 = max(r0 - halo, 0)
+    a1 = min(-(-(r1 + halo) // m) * m, pa)
+    a0 = (a0 // m) * m
+
+    def span(x, lv=0):
+        if axis == 0:
+            return x[a0 >> lv:a1 >> lv]
+        return x[:, a0 >> lv:a1 >> lv]
+
+    if kind == "multiband":
+        acc, wacc = state
+        laps = [span(acc[lv], lv) / (span(wacc[lv], lv) + _EPS)
+                for lv in range(nb + 1)]
+        band = collapse_laplacian(laps)
+        wmap = span(wacc[0])[..., 0]
+    elif kind == "feather":
+        acc, wsum = state
+        band = span(acc) / span(wsum)[..., None].clamp_min(_EPS)
+        wmap = span(wsum)
+    else:
+        band, wmap = span(state[0]), span(state[1])
+    if axis == 0:
+        return (_to_u8(band[r0 - a0:r1 - a0, :d_other]),
+                _wmap_to_u8(wmap[r0 - a0:r1 - a0, :d_other]))
+    return (_to_u8(band[:d_other, r0 - a0:r1 - a0]),
+            _wmap_to_u8(wmap[:d_other, r0 - a0:r1 - a0]))
+
+
+def _halo(p):
+    return max(2 ** (p["nb"] + 2), p["m"]) if p["kind"] == "multiband" else 0
+
+
+# ---------------------------------------------------------------------------
+# Strips and the streamed monolithic blend (canvases over the budget)
+# ---------------------------------------------------------------------------
+
+def _plan_strips(offs, szs, ww, m, gap, nb, dw, strip_w, kind="multiband"):
+    """Host plan of the strips along one canvas axis: for each strip
+    [cs, ce) of the panorama, the local canvas span [ls, le) and the
+    members, every tile whose window reaches the strip's interior within
+    the support margin S; then the most members of a strip and a common
+    local extent. Returns None when no strip has a member.
+
+    S: multiband needs border context for the feed and the collapse's
+    pyr_up chain, S = gap + 2^(nb+1); feather and paste weights are
+    computed per tile window, so their strips are exact with S = 0."""
+    S = gap + (1 << (nb + 1)) if kind == "multiband" else 0
+    offs = np.asarray(offs).reshape(-1)   # strip-axis window offsets
+    members = []
+    for cs in range(0, dw, strip_w):
+        ce = min(cs + strip_w, dw)
+        keep = [i for i in range(len(szs))
+                if offs[i] + ww > cs - S and offs[i] < ce + S]
+        if keep:
+            ls = min(min(offs[i] for i in keep), cs)
+            le = max(max(offs[i] + ww for i in keep), cs + strip_w)
+        else:
+            ls, le = cs, cs + strip_w
+        ls = max((ls // m) * m, 0)
+        members.append((cs, ce, ls, le, keep))
+    if not any(keep for *_, keep in members):
+        return None
+    max_k = max(max((len(k) for *_, k in members)), 1)
+    pw_local = _round_up(max(le - ls for _, _, ls, le, _ in members),
+                         max(512, m))
+    return members, max_k, pw_local
+
+
+def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch):
+    """Blend in strips along canvas axis `axis` (0 = column/X strips,
+    1 = row/Y strips), each strip's interior equal to the monolithic
+    blend's: its local canvas takes every tile whose window reaches the
+    interior within the support margin (`_plan_strips`), so only the
+    accumulators' memory shrinks. The reference pads each strip's members
+    to one count with zero-seam duplicates for its compiler; a zero weight
+    adds exactly 0, so here a strip feeds its members only.
+
+    stream_fetch=True: each strip's uint8 segment copies to the host while
+    later strips compute (`_HostFetch`), and the result is a host
+    (pano, mask) pair; otherwise a pair of tensors on the card."""
+    a = int(axis)
+    dh, dw, ph, pw = p["dh"], p["dw"], p["ph"], p["pw"]
+    n = p["n"]
+    C = stack.data.shape[-1]
+    dev = stack.data.device
+    # every tile's window starts inside the panorama, so some strip has
+    # members and the plan is never None here
+    members, _, pa_local = _plan_strips(
+        p["offs"][:n, a], p["szs"][:n], (p["ww"], p["wh"])[a], p["m"],
+        p["gap"], p["nb"], (dw, dh)[a], strip_w, p["kind"])
+    # the local canvas: the strip axis shrinks to pa_local
+    lph, lpw = (ph, pa_local) if a == 0 else (pa_local, pw)
+    fetch = _HostFetch(dev) if stream_fetch else None
+    if not stream_fetch:
+        pano = torch.zeros((dh, dw, C), dtype=torch.uint8, device=dev)
+        wmask = torch.zeros((dh, dw), dtype=torch.uint8, device=dev)
+    for cs, ce, ls, _, keep in members:
+        if not keep:
+            continue
+        offs = p["offs"][keep].copy()
+        offs[:, a] -= ls
+        strip, w0 = _blend_canvas(p, stack.data, seam_masks, offs, keep,
+                                  lph, lpw)
+        x0 = cs - ls
+        if a == 0:
+            seg = _to_u8(strip[:dh, x0:x0 + ce - cs])
+            wseg = _wmap_to_u8(w0[:dh, x0:x0 + ce - cs])
+        else:
+            seg = _to_u8(strip[x0:x0 + ce - cs, :dw])
+            wseg = _wmap_to_u8(w0[x0:x0 + ce - cs, :dw])
+        if stream_fetch:
+            fetch.submit(1 - a, cs, ce, seg, wseg)
+        elif a == 0:
+            pano[:, cs:ce] = seg
+            wmask[:, cs:ce] = wseg
+        else:
+            pano[cs:ce] = seg
+            wmask[cs:ce] = wseg
+    if stream_fetch:
+        return fetch.assemble(dh, dw, C)
+    return pano, wmask
+
+
+def _blend_monolithic_stream(stack, seam_masks, p):
+    """One monolithic canvas fed in row order, its finished rows leaving
+    the card while later tiles feed.
+
+    For windows that span more than a third of both canvas axes (a few
+    huge tiles, the boat-fisheye shape), strips would recompute most of
+    the canvas per strip. Instead the tiles feed in ascending window-top
+    order into one set of accumulators, and whenever every remaining
+    tile's window lies below a row frontier, the finished rows above it
+    collapse as a band (with the pyr_up halo: equal to the monolithic
+    collapse there) and copy to the host while later tiles feed. The
+    feed order differs from the batched blend's, so the sums may differ
+    in the last bit. Returns host (pano_u8, mask_u8)."""
+    kind, nb, m, dh, dw, ph, pw, n = (p["kind"], p["nb"], p["m"], p["dh"],
+                                      p["dw"], p["ph"], p["pw"], p["n"])
+    offs = p["offs"]
+    order = sorted(range(n), key=lambda i: offs[i, 1])
+    halo = _halo(p)
+    state = _new_state(kind, nb, ph, pw, stack.data.shape[-1],
+                       stack.data.device)
+    fetch = _HostFetch(stack.data.device)
+    done = 0
+
+    # one band per frontier: the collapse halo is paid once a band
+    def emit(upto):
+        nonlocal done
+        r0, r1 = done, min(upto, dh)
+        if r1 <= r0:
+            return
+        fetch.submit(0, r0, r1, *_collapse_band(state, kind, nb, m, halo, ph,
+                                                dw, r0, r1, axis=0))
+        done = r1
+
+    for k, i in enumerate(order):
+        _feed_one(state, p, i, stack.data[i], seam_masks[i], offs[i])
+        # frontier: rows above every remaining tile's window are final
+        if k + 1 < n:
+            frontier = min(int(offs[j, 1]) for j in order[k + 1:])
+            safe = ((frontier - halo) // m) * m
+            if safe - done >= max(1024, 2 * halo):
+                emit(safe)
+    emit(dh)
+    return fetch.assemble(dh, dw, stack.data.shape[-1])
+
+
+def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
+                stream_fetch=False, budget=BLEND_BUDGET_BYTES):
     """Composite the stack into the panorama.
 
     seam_masks: (B, TH, TW) tensor (from `resize_seam_masks_stack`) or None
     (use the stack's warp masks). The blender kind comes from
     `_plan_blend`: "multiband", "feather" or the paste composite "no".
-    Returns (pano_u8 (dh, dw, C), mask_u8 (dh, dw)) on the stack's device;
-    `fetch_image` copies to the host.
+
+    Accumulators under `budget` bytes (the reference's estimate: C + 1
+    float32 planes, with the coarser levels and the working copies) blend
+    in one batched pass. Over it the canvas blends in strips along the
+    axis the windows are narrow against, if they span at most a third of
+    it; otherwise, with `stream_fetch`, as the streamed monolithic blend;
+    otherwise in one batched pass all the same.
+
+    Returns (pano_u8 (dh, dw, C), mask_u8 (dh, dw)): tensors on the
+    stack's device, or host arrays where `stream_fetch` streamed the
+    copy; `fetch_image` copies a tensor to the host.
     """
     if seam_masks is None:
         seam_masks = stack.masks
@@ -569,32 +931,123 @@ def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength):
     th, twd = int(stack.data.shape[1]), int(stack.data.shape[2])
     p = _plan_blend(stack.corners, stack.sizes, b, blender_type,
                     blend_strength, th, twd)
-    kind, ph, pw, n = p["kind"], p["ph"], p["pw"], p["n"]
-    # the reference's estimate: C + 1 float32 planes, with the coarser
-    # levels and the working copies
-    acc_bytes = ph * pw * (C + 1) * 4 * 8 // 3
-    if acc_bytes > _BLEND_BUDGET_BYTES:
-        raise NotImplementedError(
-            f"a {pw} x {ph} blend canvas needs {acc_bytes / 1e9:.1f} GB of "
-            f"accumulators, over the {_BLEND_BUDGET_BYTES / 1e9:.0f} GB "
-            "blend budget: not ported yet (ROADMAP queue 1: streamed and "
-            "strip composite)")
-    args = (stack.data, seam_masks, p["offs"], p["shifts"], p["szs"], n)
-    if kind == "multiband":
-        canvas, wmap = _mb_collapse(*_mb_feed(
-            *args, p["nb"], p["wh"], p["ww"], ph, pw))
-    elif kind == "feather":
-        acc, wmap = _feather_feed(*args, p["sharpness"], ph, pw)
-        canvas = acc / wmap[..., None].clamp_min(_EPS)
-    else:
-        canvas, wmap = _paste_feed_batched(*args, ph, pw)
+    ph, pw, m = p["ph"], p["pw"], p["m"]
+    if ph * pw * (C + 1) * 4 * 8 // 3 > budget:
+        # strip axis: whichever canvas axis the tile windows are narrow
+        # against (wide panoramas -> X strips; tall multi-row canvases ->
+        # Y strips)
+        ratios = (p["ww"] / pw, p["wh"] / ph)
+        a = int(np.argmin(ratios))
+        if ratios[a] <= 1 / 3:
+            # bytes per unit length of the strip axis (a full column of
+            # accumulators for X strips, a full row for Y strips)
+            per_unit = (ph if a == 0 else pw) * (C + 1) * 4 * 8 // 3
+            strip_w = max(int(budget // (2 * per_unit))
+                          - 2 * (p["ww"], p["wh"])[a], max(256, m))
+            return _blend_strips(stack, seam_masks, p, (strip_w // m) * m,
+                                 a, stream_fetch)
+        if stream_fetch:
+            return _blend_monolithic_stream(stack, seam_masks, p)
+    canvas, wmap = _blend_canvas(p, stack.data, seam_masks, p["offs"],
+                                 range(p["n"]), ph, pw)
     dh, dw = p["dh"], p["dw"]
-    return _to_u8(canvas[:dh, :dw]), (wmap[:dh, :dw] > _EPS).to(
-        torch.uint8) * 255
+    return _to_u8(canvas[:dh, :dw]), _wmap_to_u8(wmap[:dh, :dw])
+
+
+# ---------------------------------------------------------------------------
+# Streamed composition: feed each image as it lands
+# ---------------------------------------------------------------------------
+
+class StreamComposite:
+    """Feed-as-it-lands composition over a known canvas geometry.
+
+    Built from the same host plan as `blend_stack` (`_plan_blend`), fed one
+    (tile, seam) pair at a time through the batched blend's own per-image
+    feeds, in place, and finished with one collapse. Fed in image order, it
+    equals `blend_stack` value for value.
+
+    frontier_fetch: once every unfed image's window lies right of a column
+    frontier, the finished columns left of it collapse (`_collapse_band`,
+    exact) and copy to the host while later images feed; a panorama of a
+    rotating camera is near-sorted by x, so most of the copy hides behind
+    the feeds. `finish` then returns host arrays.
+    """
+
+    def __init__(self, corners, sizes, blender_type, blend_strength,
+                 th, tw, C=3, frontier_fetch=False, device="cuda"):
+        p = _plan_blend(np.asarray(corners), np.asarray(sizes), len(sizes),
+                        blender_type, blend_strength, th, tw)
+        self.p = p
+        self.C = C
+        self.device = torch.device(device)
+        self.state = _new_state(p["kind"], p["nb"], p["ph"], p["pw"], C,
+                                self.device)
+        self._frontier = bool(frontier_fetch)
+        self._unfed = set(range(p["n"]))
+        self._emitted = 0
+        self._fetch = _HostFetch(self.device)
+        self._halo = _halo(p)
+
+    def _emit_cols(self, upto):
+        """Collapse and start the copy of final columns [emitted, upto)."""
+        p = self.p
+        c0, c1 = self._emitted, min(upto, p["dw"])
+        if c1 <= c0:
+            return
+        self._fetch.submit(1, c0, c1, *_collapse_band(
+            self.state, p["kind"], p["nb"], p["m"], self._halo, p["pw"],
+            p["dh"], c0, c1, axis=1))
+        self._emitted = c1
+
+    def feed(self, i, tile, seam):
+        """tile: (TH, TW, C) float32; seam: (TH, TW) float32, on the
+        device."""
+        p = self.p
+        _feed_one(self.state, p, i, tile, seam, p["offs"][i])
+        if self._frontier:
+            self._unfed.discard(i)
+            if self._unfed:
+                frontier = min(p["offs"][j, 0] for j in self._unfed)
+                safe = ((int(frontier) - self._halo) // p["m"]) * p["m"]
+                # the reference's smallest band (tuned for its link): the
+                # bands change when the copies run, not the result
+                min_cols = max(512, 2 * self._halo,
+                               6_000_000 // max(p["dh"] * self.C, 1))
+                if safe - self._emitted >= min_cols:
+                    self._emit_cols(safe)
+
+    def finish(self, stream_fetch=False):
+        """Collapse and crop: (pano_u8, mask_u8).
+
+        stream_fetch=True (or frontier_fetch): collapse in bands, each
+        copied to the host while the next collapses, and return host
+        arrays; otherwise one collapse returning tensors on the device."""
+        p = self.p
+        dh, dw, m = p["dh"], p["dw"], p["m"]
+        if self._frontier:
+            # the remaining columns in a couple of tail bands, so the last
+            # copy overlaps the second-to-last collapse
+            rest = dw - self._emitted
+            band = max(512, -(-(max(rest, 1) // 2) // m) * m)
+            while self._emitted < dw:
+                self._emit_cols(self._emitted + band)
+            return self._fetch.assemble(dh, dw, self.C)
+        if not stream_fetch:
+            pano, wmap = _finish_state(self.state, p["kind"], p["nb"])
+            return _to_u8(pano[:dh, :dw]), _wmap_to_u8(wmap[:dh, :dw])
+        band = max(1024, -(-(dh // 4) // m) * m)
+        for r0 in range(0, dh, band):
+            r1 = min(r0 + band, dh)
+            self._fetch.submit(0, r0, r1, *_collapse_band(
+                self.state, p["kind"], p["nb"], m, self._halo, p["ph"], dw,
+                r0, r1, axis=0))
+        return self._fetch.assemble(dh, dw, self.C)
 
 
 def fetch_image(img):
-    """Device -> host copy of an image tensor (host arrays pass through)."""
+    """Device -> host copy of an image tensor (host arrays, such as a
+    streamed blend's, pass through). The reference copies in 16 MB chunks,
+    the best size on its tunnelled link; on the card one copy does."""
     if isinstance(img, np.ndarray):
         return img
     return img.cpu().numpy()

@@ -1,37 +1,59 @@
-"""The batched stitching engine: registration, planning and compositing.
+"""The stitching engine: registration, planning and compositing.
 
-Port of `stitching_tpu/engine.py` for the ported slices: the `Stitcher` facade
-drives `run`, which is register -> plan_composition -> composite, each a
-function over explicit dataclasses (`Registration`, `CompositionPlan`) and
-stacks that stay on the card.
+Port of `stitching_tpu/engine.py` for one card. The `Stitcher` facade
+drives `run` (and `stitch_device` drives `run_device`), which is
+register -> plan_composition -> composite, each a function over explicit
+dataclasses (`Registration`, `CompositionPlan`) and stacks that stay on
+the card. The stages are named for `profiling.stage_timer` as in the
+reference.
 
-Registration keeps the reference's branch rule (`same`: are the MEDIUM
-sizes the original sizes?):
+Registration keeps the reference's three branches:
 
-- sync (`same`): the originals upload once as one stack, which is also the
-  MEDIUM stack that detection reads;
-- otherwise the reference's transfer-scheduled numerics, without its
-  background uploader: a GRAY MEDIUM stack from the host 8.8 fixed-point
-  conversion (`_host_downscale`), a colour LOW stack from the host resize,
-  one batched detect + match, and one host copy of the small results.
-  The originals upload after subsetting, for the FINAL pass.
+- async (downscaled registration, the production shape): the ORIGINAL
+  upload starts at t=0 in the background (`transfer.Uploader`); a GRAY
+  MEDIUM stack from the host 8.8 fixed-point conversion and a colour LOW
+  stack from the host resize upload inside its yield lane; one batched
+  detect + match and one host copy of the small results. The registration
+  keeps the uploader, subset to the kept images, and no ORIGINAL stack;
+- sync (inputs already at MEDIUM size): the originals upload once as one
+  stack, which is also the MEDIUM stack that detection reads;
+- prestaged (`prestaged`: a `pipeline.DeviceStack` of the originals
+  already on the card): no image upload at all; MEDIUM is the stack
+  resized on the card.
 
-Compositing is the batched path only. The reference's streamed FINAL pass
-is documented there as bit-identical to its batched one.
+Compositing follows the reference's schedule too. On the async branch,
+when the monolithic accumulators fit `compose.BLEND_BUDGET_BYTES`, the
+FINAL pass streams per image (`_composite_streamed`): each image warps,
+crops, takes its gains and its seam mask and feeds the blend
+(`compose.StreamComposite`) as soon as its upload lands, and the panorama
+collapses and copies to the host in bands. Otherwise one batched pass:
+the FINAL warp (paced by the uploader where there is one), crop, gains,
+seam masks and `blend_stack`, which takes strips or the streamed
+monolithic blend over the budget. With timelapse the batched pass writes
+one frame per image instead of blending.
 """
 
 import concurrent.futures as cf
 import dataclasses
 
 import numpy as np
+import torch
 
-from .compose import (TileStack, apply_gains_stack, blend_stack, fetch_image,
-                      resize_seam_masks_stack, slice_stack, warp_stack)
+from . import compose
+from . import profiling as prof
+from .compose import (StreamComposite, TileStack, _gain_map_kernel,
+                      _gain_mul_kernel, _plan_blend, _round_up,
+                      _seam_resize_kernel, apply_gains_stack, blend_stack,
+                      crop_shape, fetch_image, plan_gain_arrays,
+                      plan_warp_rois, resize_seam_masks_stack, slice_stack,
+                      slice_tiles, warp_single, warp_stack,
+                      warp_stack_streamed)
 from .errors import StitchingError
 from .images import Images
 from .ops.resize import resize as _host_resize
 from .pipeline import match_stack_fetch, resize_stack, stack_images
 from .subsetter import Subsetter
+from .transfer import Uploader
 from .warper import Warper
 
 Resolution = Images.Resolution
@@ -47,7 +69,10 @@ class Registration:
     matches: list
     cameras: list
     scale: float            # canvas scale (median focal)
-    low_stack: object = None  # host-resized LOW stack (async branch)
+    # async branch: the originals streaming up in the background, and the
+    # LOW stack from the host resize
+    uploader: object = None
+    low_stack: object = None
 
 
 @dataclasses.dataclass
@@ -63,59 +88,88 @@ class CompositionPlan:
 # Registration
 # ---------------------------------------------------------------------------
 
-def register(st, images, feature_masks=()):
+def register(st, images, feature_masks=(), prestaged=None):
     """MEDIUM-resolution registration (see the module docstring)."""
     images_obj = Images.of(
         images, st.medium_megapix, st.low_megapix, st.final_megapix)
     originals = [np.asarray(img) for img in images_obj]
     med_sizes = images_obj.get_scaled_img_sizes(Resolution.MEDIUM)
     orig_sizes = [(im.shape[1], im.shape[0]) for im in originals]
-    if list(map(tuple, med_sizes)) == orig_sizes:
-        return _register_sync(st, images_obj, originals, feature_masks)
-    return _register_async(st, images_obj, originals, med_sizes,
-                           feature_masks)
+    same = list(map(tuple, med_sizes)) == orig_sizes
+    if prestaged is None and not same:
+        return _register_async(st, images_obj, originals, med_sizes,
+                               feature_masks)
+    return _register_sync(st, images_obj, originals, med_sizes, same,
+                          feature_masks, prestaged)
 
 
-def _register_sync(st, images_obj, originals, feature_masks):
-    """One stack serves as MEDIUM and ORIGINAL (inputs already at MEDIUM
-    size)."""
+def _register_sync(st, images_obj, originals, med_sizes, same,
+                   feature_masks, prestaged=None):
+    """One stack of the originals (uploaded here, or prestaged); MEDIUM is
+    that stack, or that stack resized on the card."""
     n = len(originals)
-    stack = stack_images(originals, st.device)
-    masks_medium = _prepare_feature_masks(st, feature_masks, stack, n)
-    features = st.detector.detect_on_stack(stack, masks_medium)[:n]
-    matches = st.matcher.match_features(features)
-    indices, features, matches = _subset(st, images_obj, features, matches)
-    if len(indices) < n:
-        stack = _subset_stack(stack, indices)
+    with prof.stage_timer("registration/upload"):
+        if prestaged is not None:
+            stack = prestaged
+            medium = stack if same else resize_stack(
+                stack, _pad_sizes(med_sizes, stack.batch))
+        else:
+            stack = stack_images(originals, st.device)
+            medium = stack
+    with prof.stage_timer("registration/detect"):
+        masks_medium = _prepare_feature_masks(st, feature_masks, medium, n)
+        features = st.detector.detect_on_stack(medium, masks_medium)[:n]
+    with prof.stage_timer("registration/match"):
+        matches = st.matcher.match_features(features)
+    with prof.stage_timer("registration/subset"):
+        indices, features, matches = _subset(st, images_obj, features,
+                                             matches)
+        if len(indices) < n:
+            stack = _subset_stack(stack, indices)
     return _register_cameras(st, images_obj, stack, features, matches)
 
 
 def _register_async(st, images_obj, originals, med_sizes, feature_masks):
-    """Downscaled registration: gray MEDIUM + colour LOW host stacks, one
-    batched detect + match, one host copy of the results."""
+    """Downscaled registration: the ORIGINAL upload streams from t=0;
+    gray MEDIUM + colour LOW host stacks upload inside its yield lane;
+    one batched detect + match, one host copy of the results."""
     n = len(originals)
     low_sizes = images_obj.get_scaled_img_sizes(Resolution.LOW)
-    med_gray, low_imgs = _host_downscale(originals, med_sizes, low_sizes)
-    medium = stack_images(med_gray, st.device)
-    low_stack = stack_images(low_imgs, st.device)
-    masks_medium = _prepare_feature_masks(st, feature_masks, medium, n)
-    feats_dev = st.detector.detect_on_stack_dispatch(medium, masks_medium)
-    pair_ij, chunks = st.matcher.match_stacked_dispatch(
-        {k: feats_dev[k] for k in ("desc", "valid", "xy")},
-        np.asarray(med_sizes, np.float32), st.detector.is_binary,
-        n_images=n)
-    small = {k: feats_dev[k].cpu().numpy()
-             for k in ("xy", "response", "size", "angle_deg", "valid")}
-    features = st.detector.features_from_host(
-        feats_dev["desc"], small, med_sizes)
-    res = match_stack_fetch(chunks) if chunks is not None else None
-    matches = st.matcher.matches_from_host(pair_ij, res, n)
-    indices, features, matches = _subset(st, images_obj, features, matches)
-    if len(indices) < n:
-        low_stack = _subset_stack(low_stack, indices)
-    stack = stack_images([originals[i] for i in indices], st.device)
-    return _register_cameras(st, images_obj, stack, features, matches,
-                             low_stack=low_stack)
+    uploader = Uploader(originals, device=st.device)
+    with prof.stage_timer("registration/resize_medium"):
+        med_gray, low_imgs = _host_downscale(originals, med_sizes, low_sizes)
+    with uploader.yield_lane():
+        with prof.stage_timer("registration/upload"):
+            medium = stack_images(med_gray, st.device)
+            low_stack = stack_images(low_imgs, st.device)
+            prof.fence(medium.data, low_stack.data)
+        with prof.stage_timer("registration/detect"):
+            masks_medium = _prepare_feature_masks(st, feature_masks, medium,
+                                                  n)
+            feats_dev = st.detector.detect_on_stack_dispatch(medium,
+                                                             masks_medium)
+            prof.fence(feats_dev)
+        with prof.stage_timer("registration/match_dispatch"):
+            pair_ij, chunks = st.matcher.match_stacked_dispatch(
+                {k: feats_dev[k] for k in ("desc", "valid", "xy")},
+                np.asarray(med_sizes, np.float32), st.detector.is_binary,
+                n_images=n)
+    with prof.stage_timer("registration/match"):
+        # the registration's one host copy: detection fields + matches
+        small = {k: feats_dev[k].cpu().numpy()
+                 for k in ("xy", "response", "size", "angle_deg", "valid")}
+        features = st.detector.features_from_host(
+            feats_dev["desc"], small, med_sizes)
+        res = match_stack_fetch(chunks) if chunks is not None else None
+        matches = st.matcher.matches_from_host(pair_ij, res, n)
+    with prof.stage_timer("registration/subset"):
+        indices, features, matches = _subset(st, images_obj, features,
+                                             matches)
+        if len(indices) < n:
+            uploader.subset(indices)
+            low_stack = _subset_stack(low_stack, indices)
+    return _register_cameras(st, images_obj, None, features, matches,
+                             uploader=uploader, low_stack=low_stack)
 
 
 def _subset(st, images_obj, features, matches):
@@ -127,14 +181,18 @@ def _subset(st, images_obj, features, matches):
 
 
 def _register_cameras(st, images_obj, stack, features, matches,
-                      low_stack=None):
+                      uploader=None, low_stack=None):
     """Shared tail: estimate -> bundle-adjust -> wave-correct -> scale."""
-    cameras = st.camera_estimator.estimate(features, matches)
-    cameras = st.camera_adjuster.adjust(features, matches, cameras)
-    cameras = st.wave_corrector.correct(cameras)
+    with prof.stage_timer("registration/estimate"):
+        cameras = st.camera_estimator.estimate(features, matches)
+    with prof.stage_timer("registration/bundle_adjust"):
+        cameras = st.camera_adjuster.adjust(features, matches, cameras)
+    with prof.stage_timer("registration/wave_correct"):
+        cameras = st.wave_corrector.correct(cameras)
     st.warper.set_scale(cameras)
     return Registration(images_obj, stack, features, matches, cameras,
-                        st.warper.scale, low_stack=low_stack)
+                        st.warper.scale, uploader=uploader,
+                        low_stack=low_stack)
 
 
 def _host_downscale(originals, med_sizes, low_sizes):
@@ -194,21 +252,31 @@ def _prepare_feature_masks(st, feature_masks, medium_stack, n):
 # Warping, planning, compositing
 # ---------------------------------------------------------------------------
 
-def warp_resolution(st, reg: Registration, resolution) -> TileStack:
-    """Warp every image onto the compositing surface at `resolution`: the
-    host-resized LOW stack where registration made one, otherwise the
-    ORIGINAL stack resized on the card."""
+def _geometry(reg, resolution):
+    """Target sizes, Ks, Rs and canvas scale of every image at
+    `resolution`."""
     sizes = reg.images.get_scaled_img_sizes(resolution)
     aspect = reg.images.get_ratio(Resolution.MEDIUM, resolution)
     Ks = [Warper.get_K(cam, aspect) for cam in reg.cameras]
     Rs = [cam.R for cam in reg.cameras]
-    scale = reg.scale * aspect
-    if resolution == Resolution.LOW and reg.low_stack is not None:
-        src = reg.low_stack
-    else:
-        src = resize_stack(reg.stack, _pad_sizes(sizes, reg.stack.batch))
-    return warp_stack(src.data, src.sizes, Ks, Rs, scale,
-                      st.warper.warper_type)
+    return sizes, Ks, Rs, reg.scale * aspect
+
+
+def warp_resolution(st, reg: Registration, resolution) -> TileStack:
+    """Warp every image onto the compositing surface at `resolution`.
+
+    Async branch: LOW warps the host-resized LOW stack; FINAL warps each
+    image as its upload lands (`warp_stack_streamed`). Otherwise the
+    ORIGINAL stack resized on the card, in one batched pass."""
+    sizes, Ks, Rs, scale = _geometry(reg, resolution)
+    wt = st.warper.warper_type
+    if reg.uploader is not None:
+        if resolution == Resolution.LOW and reg.low_stack is not None:
+            src = reg.low_stack
+            return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt)
+        return warp_stack_streamed(reg.uploader, sizes, Ks, Rs, scale, wt)
+    src = resize_stack(reg.stack, _pad_sizes(sizes, reg.stack.batch))
+    return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt)
 
 
 def _crop_tiles(ts: TileStack, cropper, aspect) -> TileStack:
@@ -224,36 +292,173 @@ def _crop_tiles(ts: TileStack, cropper, aspect) -> TileStack:
 
 def plan_composition(st, reg: Registration) -> CompositionPlan:
     """The LOW pass: warp, crop planning, exposure feed and seam search."""
-    low = warp_resolution(st, reg, Resolution.LOW)
-    if st.cropper.do_crop:
-        _, pano_mask = blend_stack(low, None, "no", 0)
-        st.cropper.prepare_from_mask(
-            pano_mask, [tuple(c) for c in low.corners],
-            [tuple(s) for s in low.sizes])
-        low = _crop_tiles(low, st.cropper, 1)
-    lir_aspect = reg.images.get_ratio(Resolution.LOW, Resolution.FINAL)
-    st.compensator.feed_stack([tuple(c) for c in low.corners], low)
-    seam_masks = st.seam_finder.find_stack(low)
+    with prof.stage_timer("low/warp"):
+        low = warp_resolution(st, reg, Resolution.LOW)
+        prof.fence(low.data, low.masks)
+    with prof.stage_timer("low/crop"):
+        if st.cropper.do_crop:
+            _, pano_mask = blend_stack(low, None, "no", 0,
+                                       budget=compose.BLEND_BUDGET_BYTES)
+            st.cropper.prepare_from_mask(
+                pano_mask, [tuple(c) for c in low.corners],
+                [tuple(s) for s in low.sizes])
+            low = _crop_tiles(low, st.cropper, 1)
+        lir_aspect = reg.images.get_ratio(Resolution.LOW, Resolution.FINAL)
+    with prof.stage_timer("low/exposure_feed"):
+        st.compensator.feed_stack([tuple(c) for c in low.corners], low)
+    with prof.stage_timer("low/seam_find"):
+        seam_masks = st.seam_finder.find_stack(low)
+        prof.fence(seam_masks)
     return CompositionPlan(
         (seam_masks, np.asarray(low.sizes)),
         st.cropper.intersection_rectangles if st.cropper.do_crop else None,
         lir_aspect)
 
 
-def composite(st, reg: Registration, plan: CompositionPlan):
-    """FINAL-resolution compositing; the panorama as a uint8 host array."""
-    fin = warp_resolution(st, reg, Resolution.FINAL)
-    # the originals have no further consumers: free them before the blend
-    reg.stack = None
-    reg.low_stack = None
-    if plan.crop_rects is not None:
-        fin = _crop_tiles(fin, st.cropper, plan.lir_aspect)
-    # gains apply before the seam masks are resized against the tiles
-    fin = apply_gains_stack(fin, st.compensator)
-    seams = resize_seam_masks_stack(plan.seam_masks_low, fin)
-    pano, _ = blend_stack(fin, seams, st.blender.blender_type,
-                          st.blender.blend_strength)
-    return fetch_image(pano)
+def _stream_fits_budget(st, reg):
+    """Stream only when the monolithic accumulators fit the blend budget;
+    beyond it the batched pass's strips take over.
+
+    The estimate counts what `StreamComposite` allocates (the level sum of
+    the pyramid-aligned canvas from `_plan_blend`, the true channel count)
+    on the uncropped ROIs: equal to the streamed plan without crop, a
+    slight over-estimate with it (the safe direction)."""
+    sizes, Ks, Rs, scale = _geometry(reg, Resolution.FINAL)
+    corners, dsizes = plan_warp_rois([tuple(map(int, s)) for s in sizes],
+                                     Ks, Rs, scale, st.warper.warper_type)
+    th = _round_up(int(dsizes[:, 1].max()))
+    tw = _round_up(int(dsizes[:, 0].max()))
+    p = _plan_blend(corners, dsizes, len(dsizes), st.blender.blender_type,
+                    st.blender.blend_strength, th, tw)
+    C = reg.uploader.channels
+    levels = p["nb"] + 1 if p["kind"] == "multiband" else 1
+    acc_bytes = sum((p["ph"] >> lv) * (p["pw"] >> lv) * (C + 1) * 4
+                    for lv in range(levels))
+    return acc_bytes <= compose.BLEND_BUDGET_BYTES
+
+
+def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
+    """FINAL-resolution compositing: the panorama as a uint8 host array,
+    or with fetch=False as a uint8 tensor on the card; None with
+    timelapse, which writes one frame per image instead."""
+    if (reg.uploader is not None and not st.timelapser.do_timelapse
+            and _stream_fits_budget(st, reg)):
+        pano = _composite_streamed(st, reg, plan)
+        return pano if fetch else torch.as_tensor(pano, device=st.device)
+    with prof.stage_timer("final/warp"):
+        fin = warp_resolution(st, reg, Resolution.FINAL)
+        prof.fence(fin.data, fin.masks)
+        # the originals have no further consumers: free them before the
+        # blend allocates
+        reg.stack = None
+        reg.uploader = None
+        reg.low_stack = None
+    with prof.stage_timer("final/crop"):
+        if plan.crop_rects is not None:
+            fin = _crop_tiles(fin, st.cropper, plan.lir_aspect)
+
+    if st.timelapser.do_timelapse:
+        with prof.stage_timer("final/timelapse"):
+            corners = [tuple(c) for c in fin.corners]
+            st.timelapser.initialize(corners, [tuple(s) for s in fin.sizes])
+            imgs, _ = fin.to_host()
+            for name, img, corner in zip(reg.images.names, imgs, corners):
+                st.timelapser.process_and_save_frame(name, img, corner)
+        return None
+
+    with prof.stage_timer("final/gain_apply"):
+        fin = apply_gains_stack(fin, st.compensator)
+        prof.fence(fin.data)
+    with prof.stage_timer("final/seam_resize"):
+        seams = resize_seam_masks_stack(plan.seam_masks_low, fin)
+        prof.fence(seams)
+    with prof.stage_timer("final/blend"):
+        # over the budget the blend may stream its copy to the host in
+        # bands: a host array, which fetch_image passes through
+        pano, _ = blend_stack(fin, seams, st.blender.blender_type,
+                              st.blender.blend_strength, stream_fetch=fetch,
+                              budget=compose.BLEND_BUDGET_BYTES)
+        prof.fence(pano)
+    if not fetch:
+        return pano
+    with prof.stage_timer("final/download"):
+        return fetch_image(pano)
+
+
+def _composite_streamed(st, reg: Registration, plan: CompositionPlan):
+    """The FINAL pass per image (async branch).
+
+    Each image's resize -> warp -> crop -> gain -> seam resize -> blend
+    feed runs as soon as its upload lands (`Uploader.image`), through the
+    batched stages' own per-image code, so the panorama equals the batched
+    pass's; after the last image only its feed, the banded collapse and
+    the copy to the host remain. Returns the host panorama."""
+    n = len(reg.cameras)
+    up = reg.uploader
+    with prof.stage_timer("final/plan"):
+        sizes, Ks, Rs, scale = _geometry(reg, Resolution.FINAL)
+        sizes = [tuple(map(int, s)) for s in sizes]
+        wt = st.warper.warper_type
+        corners, dsizes = plan_warp_rois(sizes, Ks, Rs, scale, wt)
+        th = _round_up(int(dsizes[:, 1].max()))
+        tw = _round_up(int(dsizes[:, 0].max()))
+        crop = plan.crop_rects is not None
+        if crop:
+            rects = [tuple(r.times(plan.lir_aspect))
+                     for r in st.cropper.intersection_rectangles]
+            ccorn, csz = st.cropper.crop_rois(
+                [tuple(c) for c in corners], [tuple(s) for s in dsizes],
+                plan.lir_aspect)
+            fin_corners = np.asarray(ccorn)
+            fin_sizes = np.asarray(csz, np.int64)
+            cshape = crop_shape(rects, th, tw)
+            fth, ftw = cshape[:2]
+        else:
+            fin_corners, fin_sizes = np.asarray(corners), np.asarray(dsizes)
+            fth, ftw = th, tw
+        C = up.channels
+        gain_mode, gain_arrs = plan_gain_arrays(st.compensator, fin_sizes, n,
+                                                C)
+        lo, lo_sizes = plan.seam_masks_low
+        dev = lo.device
+        lsz = torch.as_tensor(_pad_sizes(lo_sizes, lo.shape[0]), device=dev)
+        fsz = torch.as_tensor(np.asarray(fin_sizes, np.int32), device=dev)
+        if gain_mode == "scalar":
+            gains = torch.as_tensor(gain_arrs, device=dev)
+        elif gain_mode == "map":
+            gmaps = [torch.as_tensor(a, device=dev) for a in gain_arrs]
+        # the column-frontier copy overlaps the card's work with the
+        # panorama's trip to the host; on the CPU there is nothing to
+        # overlap
+        stream = StreamComposite(fin_corners, fin_sizes,
+                                 st.blender.blender_type,
+                                 st.blender.blend_strength, fth, ftw, C,
+                                 frontier_fetch=dev.type == "cuda",
+                                 device=dev)
+
+    with prof.stage_timer("final/stream"):
+        for i in range(n):
+            with prof.stage_timer("final/upload_wait"):
+                raw = up.image(i)
+            tile, mask = warp_single(raw, sizes[i], Ks[i], Rs[i], corners[i],
+                                     dsizes[i], scale, wt, th, tw,
+                                     channels=C)
+            if crop:
+                tile, mask = slice_tiles(tile, mask, rects[i:i + 1], *cshape)
+            if gain_mode == "scalar":
+                tile = _gain_mul_kernel(tile, gains[i:i + 1])
+            elif gain_mode == "map":
+                tile = _gain_map_kernel(tile, *[g[i:i + 1] for g in gmaps])
+            seam = _seam_resize_kernel(lo[i:i + 1], lsz[i:i + 1], mask,
+                                       fsz[i:i + 1])
+            stream.feed(i, tile[0], seam[0])
+        # the originals have no further consumers
+        reg.uploader = None
+        reg.low_stack = None
+        prof.fence(stream.state)
+    with prof.stage_timer("final/blend"):
+        pano, _ = stream.finish(stream_fetch=True)
+    return pano
 
 
 def run(st, images, feature_masks=()):
@@ -261,3 +466,17 @@ def run(st, images, feature_masks=()):
     reg = register(st, images, feature_masks)
     plan = plan_composition(st, reg)
     return composite(st, reg, plan)
+
+
+def run_device(st, images, feature_masks=(), prestaged=None):
+    """The device-resident pipeline: the originals on the card (prestaged,
+    or staged here with one upload), the panorama returned as a uint8
+    tensor on the card. `prestaged`: a `pipeline.DeviceStack` of the
+    ORIGINAL-resolution images (a padded batch is allowed). Copy the result
+    on demand with `compose.fetch_image`."""
+    if prestaged is None:
+        prestaged = stack_images([np.asarray(im) for im in images],
+                                 st.device)
+    reg = register(st, images, feature_masks, prestaged=prestaged)
+    plan = plan_composition(st, reg)
+    return composite(st, reg, plan, fetch=False)

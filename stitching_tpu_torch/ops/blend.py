@@ -1,6 +1,8 @@
-"""The L1 distance transform under the feather blend and the voronoi seams.
+"""The L1 distance transform under the feather blend and the voronoi seams,
+and the panorama's union ROI.
 
-Port of `stitching_tpu/ops/blend.py::distance_transform_l1`. The reference
+Port of `stitching_tpu/ops/blend.py::distance_transform_l1` and
+`result_roi`. The reference
 runs a row scan with a column scan inside it; the city-block distance is
 separable, so here it is two 1-D transforms (down the columns, then along
 the rows), each a forward and a backward `torch.cummin`:
@@ -36,3 +38,14 @@ def distance_transform_l1(mask):
     d = torch.where(mask > 0, BIG, 0).to(torch.int64)
     d = _dt_1d(_dt_1d(d, -2), -1)
     return d.clamp_max(BIG).to(torch.float32)
+
+
+def result_roi(corners, sizes):
+    """Union bounding box: ((x, y), (w, h)), the cv.detail.resultRoi
+    analogue."""
+    xs = [c[0] for c in corners]
+    ys = [c[1] for c in corners]
+    x2 = [c[0] + s[0] for c, s in zip(corners, sizes)]
+    y2 = [c[1] + s[1] for c, s in zip(corners, sizes)]
+    tl = (min(xs), min(ys))
+    return tl, (max(x2) - tl[0], max(y2) - tl[1])

@@ -1,7 +1,7 @@
 """Gaussian and Laplacian pyramids (the cv.pyrDown / cv.pyrUp analogues).
 
 Port of `stitching_tpu/ops/pyramid.py`, the building blocks of the
-multi-band blend (`compose._mb_feed`). The 5-tap binomial kernel
+multi-band blend (`compose._mb_feed_one`). The 5-tap binomial kernel
 [1, 4, 6, 4, 1] / 16 runs as two separable polyphase passes of shifted
 adds, each sum in the reference's order:
 

@@ -18,6 +18,7 @@ Stacks pad to multiples of 64; true per-image sizes ride along as host
 metadata.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -56,6 +57,28 @@ class DeviceStack:
     @property
     def batch(self):
         return self.data.shape[0]
+
+    def image(self, i):
+        """Host copy of image i, cropped to its true size (float32)."""
+        w, h = self.sizes[i]
+        return self.data[i, :h, :w].cpu().numpy()
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 products and convolutions for the block, as the
+    reference computes: cuBLAS's and cuDNN's float32 paths may use TF32
+    unless told not to, which would perturb the ORB scores and the camera
+    math. The caller's settings are restored afterwards."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def stack_images(imgs, device="cuda"):
@@ -291,6 +314,11 @@ def register_pair(img_a, img_b, *, nfeatures=256, device="cuda"):
     (H (3, 3) float32 tensor mapping a's pixels to b's, num_inliers int
     tensor), both on `device`.
     """
+    with no_tf32():
+        return _register_pair(img_a, img_b, nfeatures, device)
+
+
+def _register_pair(img_a, img_b, nfeatures, device):
     feats = []
     for img in (img_a, img_b):
         plane = torch.as_tensor(np.array(img, np.float32), device=device)

@@ -12,13 +12,15 @@ ray bundle adjustment, horizontal wave correction, the spherical warp, the
 LIR crop, gain_blocks exposure, dp_color seams and the multiband blend;
 so do the other matchers, estimators, adjusters, wave corrections, all 16
 warp surfaces, the five compensators, the five seam finders and the three
-blenders. `AffineStitcher()` stitches scans: similarity matching, the
-affine estimate and adjuster, the affine warp, no wave correction and no
-exposure compensation. `SLICE` and `SLICE2` are two smaller configurations
-that switch stages off. Settings the port does not implement yet (the
-SIFT/BRISK/AKAZE detectors, timelapse) raise `NotImplementedError` from
-the component that owns them, naming the setting and the ROADMAP item
-that ports it.
+blenders, and the timelapse frames. `AffineStitcher()` stitches scans:
+similarity matching, the affine estimate and adjuster, the affine warp, no
+wave correction and no exposure compensation. `SLICE` and `SLICE2` are two
+smaller configurations that switch stages off. `stitch` returns the
+panorama on the host; `stitch_device` keeps it on the device. Both set
+TF32 off for the call only (`pipeline.no_tf32`). Settings the port does
+not implement yet (the SIFT/BRISK/AKAZE detectors) raise
+`NotImplementedError` from the component that owns them, naming the
+setting and the ROADMAP item that ports it.
 """
 
 import warnings
@@ -36,6 +38,7 @@ from .exposure_error_compensator import ExposureErrorCompensator
 from .feature_detector import FeatureDetector
 from .feature_matcher import FeatureMatcher
 from .images import Images
+from .pipeline import no_tf32
 from .seam_finder import SeamFinder
 from .subsetter import Subsetter
 from .timelapser import Timelapser
@@ -122,13 +125,19 @@ class Stitcher:
         self.timelapser = Timelapser(s["timelapse"], s["timelapse_prefix"])
 
     def stitch(self, images, feature_masks=[]):
-        """Stitch the image set into a panorama (uint8 host array)."""
-        # The reference computes in float32. cuDNN's float32 convolutions
-        # and cuBLAS's float32 products may use TF32 unless told not to,
-        # which would perturb the ORB scores and the camera math.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        return engine.run(self, images, feature_masks)
+        """Stitch the image set into a panorama (uint8 host array), or,
+        with timelapse, write one frame per image and return None."""
+        with no_tf32():
+            return engine.run(self, images, feature_masks)
+
+    def stitch_device(self, images, feature_masks=[], prestaged=None):
+        """Device-resident stitch: the panorama as a uint8 tensor on the
+        stitcher's device. `prestaged` optionally supplies the originals
+        as a `pipeline.DeviceStack` already on the device, so the pipeline
+        uploads no image (the MEDIUM resize runs on the device). Copy the
+        result on demand with `compose.fetch_image`."""
+        with no_tf32():
+            return engine.run_device(self, images, feature_masks, prestaged)
 
     def validate_kwargs(self, kwargs):
         for arg in kwargs:

@@ -145,7 +145,8 @@ def test_affine_stitcher_with_jax_registration_within_one_lsb(images,
     st = AffineStitcher(crop=False, device="cpu")
     own = engine.register(st, images)
     reg = engine._register_cameras(st, own.images, own.stack, feats,
-                                   matches, low_stack=own.low_stack)
+                                   matches, uploader=own.uploader,
+                                   low_stack=own.low_stack)
     for c, r in zip(reg.cameras, cams):
         np.testing.assert_allclose(c.R, r.R, rtol=1e-4, atol=1e-4)
     pano = _panorama(st, reg)

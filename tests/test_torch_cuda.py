@@ -776,3 +776,189 @@ def test_scalar_gains_cuda_close_to_cpu(cuda_device, kind):
     diff = (got - want).abs()
     assert float(diff.max()) <= 1.0
     assert float((diff == 0).float().mean()) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the upload stream, the streamed composite and the strips on the
+# card, against the same code's batched and monolithic results there
+# (`test_torch_stream.py` and `test_torch_transfer.py` hold them against
+# the JAX package on the CPU)
+# ---------------------------------------------------------------------------
+
+def _upload_images(n=6, h=1200, w=1600, seed=0):
+    rng = np.random.RandomState(seed)
+    imgs = [rng.randint(0, 255, (h + 7 * i, w, 3), np.uint8)
+            for i in range(n)]
+    imgs.append(rng.randint(0, 255, (h // 3, w // 5), np.uint8))
+    return imgs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_bytes,depth", [(65_536, 2), (3_000_000, 2),
+                                               (1_000_000, 6)])
+def test_uploader_cuda_content_exact(cuda_device, chunk_bytes, depth):
+    """Each image read on the caller's stream right after `image(i)`
+    returns (no host sync in between) equals the host image: the caller's
+    stream waits on the image's event."""
+    from stitching_tpu_torch.transfer import Uploader
+
+    imgs = _upload_images()
+    up = Uploader(imgs, chunk_bytes=chunk_bytes, depth=depth,
+                  device=cuda_device)
+    sums = []
+    for i in range(len(imgs)):
+        got = up.image(i)
+        assert got.device.type == "cuda" and got.dtype == torch.uint8
+        # queued on the current stream before anything synchronises
+        sums.append(got.to(torch.int64).sum())
+        assert got.shape == imgs[i].shape
+    for i, s in enumerate(sums):
+        assert int(s) == int(imgs[i].astype(np.int64).sum())
+        assert np.array_equal(up.image(i).cpu().numpy(), imgs[i])
+    up.join()
+    assert up.channels == 3
+
+
+@pytest.mark.cuda
+def test_uploader_cuda_consumer_on_another_stream(cuda_device):
+    """`image(i)` orders the caller's current stream, whichever it is,
+    after the copy."""
+    from stitching_tpu_torch.transfer import Uploader
+
+    imgs = _upload_images(n=3)
+    up = Uploader(imgs, chunk_bytes=100_000, device=cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        copies = [up.image(i).clone() for i in range(len(imgs))]
+    side.synchronize()
+    for c, im in zip(copies, imgs):
+        assert np.array_equal(c.cpu().numpy(), im)
+
+
+@pytest.mark.cuda
+def test_uploader_cuda_staging_alive_until_copied(cuda_device, monkeypatch):
+    """Every pinned staging buffer is released only after its copy has
+    run: an event recorded right after the copy has fired by the time
+    the buffer is freed."""
+    import weakref
+
+    from stitching_tpu_torch import transfer
+
+    real = transfer._copy_chunk
+    checks = []
+
+    def copy_chunk(dst, src, stream):
+        staging = real(dst, src, stream)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        weakref.finalize(staging, lambda e=ev: checks.append(e.query()))
+        return staging
+
+    monkeypatch.setattr(transfer, "_copy_chunk", copy_chunk)
+    imgs = _upload_images(n=4)
+    up = transfer.Uploader(imgs, chunk_bytes=200_000, depth=2,
+                           device=cuda_device)
+    up.join()
+    for i, im in enumerate(imgs):
+        assert np.array_equal(up.image(i).cpu().numpy(), im)
+    assert len(checks) > 4 * 20 and all(checks)
+
+
+@pytest.mark.cuda
+def test_bilinear_cuda_same_value_whatever_the_batch(cuda_device):
+    """The streamed FINAL warp samples one image at a time: the kernel's
+    value at a pixel does not depend on the batch it ran in."""
+    from stitching_tpu_torch.compose import warp_single, warp_stack
+
+    rng = np.random.RandomState(3)
+    n, (w, h) = 3, (320, 240)
+    data = torch.tensor(rng.rand(n, h, w, 3).astype(np.float32) * 255,
+                        device=cuda_device)
+    sizes = np.asarray([(w, h)] * n, np.int32)
+    Ks = [np.array([[300, 0, w / 2], [0, 300, h / 2], [0, 0, 1]],
+                   np.float32)] * n
+    Rs = [np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]], np.float32)
+          for a in (-0.4, 0.0, 0.4)]
+    batched = warp_stack(data, sizes, Ks, Rs, 300.0, "spherical")
+    th, tw = batched.data.shape[1:3]
+    for i in range(n):
+        tile, mask = warp_single(data[i], (w, h), Ks[i], Rs[i],
+                                 batched.corners[i], batched.sizes[i], 300.0,
+                                 "spherical", th, tw)
+        assert torch.equal(tile[0], batched.data[i])
+        assert torch.equal(mask[0], batched.masks[i])
+
+
+def _strip_stack(name, device):
+    """The `test_torch_stream.py` geometries at a larger scale: a wide row
+    (X strips), a tall grid (Y strips) and big windows (the streamed
+    monolithic blend)."""
+    rng = np.random.RandomState(5)
+    if name == "x":
+        th, tw, corners = 600, 800, [(i * 700, (i % 2) * 20)
+                                     for i in range(12)]
+    elif name == "y":
+        th, tw, corners = 500, 800, [(c * 650, r * 430) for r in range(8)
+                                     for c in range(2)]
+    else:
+        th, tw, corners = 900, 700, [(c * 600, r * 800) for r in range(3)
+                                     for c in range(2)]
+    n = len(corners)
+    data = torch.tensor(rng.randint(0, 255, (n, th, tw, 3)).astype(
+        np.float32), device=device)
+    masks = torch.full((n, th, tw), 255.0, device=device)
+    from stitching_tpu_torch.compose import TileStack
+
+    return TileStack(data, masks, np.asarray(corners, np.int64),
+                     np.asarray([(tw, th)] * n, np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind,stream_fetch", [
+    ("x", "multiband", False), ("x", "multiband", True),
+    ("x", "feather", True), ("x", "no", False), ("y", "multiband", True),
+    ("y", "feather", False), ("mono", "multiband", True),
+    ("mono", "feather", True)])
+def test_over_budget_blend_cuda_close_to_monolithic(cuda_device, name, kind,
+                                                     stream_fetch):
+    from stitching_tpu_torch import compose
+
+    stack = _strip_stack(name, cuda_device)
+    mono, mono_mask = compose.blend_stack(stack, None, kind, 5)
+    got, got_mask = compose.blend_stack(stack, None, kind, 5,
+                                        stream_fetch=stream_fetch,
+                                        budget=20e6)
+    if stream_fetch:
+        assert isinstance(got, np.ndarray)
+    else:
+        got, got_mask = got.cpu().numpy(), got_mask.cpu().numpy()
+    mono = mono.cpu().numpy()
+    assert got.shape == mono.shape
+    diff = np.abs(got.astype(np.int16) - mono.astype(np.int16))
+    assert diff.max() <= 1
+    assert np.array_equal(got_mask, mono_mask.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["multiband", "feather", "no"])
+@pytest.mark.parametrize("frontier", [False, True])
+def test_stream_composite_cuda_equals_blend_stack(cuda_device, kind,
+                                                  frontier):
+    """Fed in image order on the card, with or without the column
+    frontier's side-stream copies, the streamed composite equals the
+    batched blend."""
+    from stitching_tpu_torch import compose
+
+    stack = _strip_stack("x", cuda_device)
+    pano, mask = compose.blend_stack(stack, None, kind, 5)
+    th, tw = stack.data.shape[1:3]
+    stream = compose.StreamComposite(stack.corners, stack.sizes, kind, 5,
+                                     th, tw, frontier_fetch=frontier,
+                                     device=cuda_device)
+    for i in range(stack.data.shape[0]):
+        stream.feed(i, stack.data[i], stack.masks[i])
+    got, got_mask = stream.finish(stream_fetch=True)
+    assert isinstance(got, np.ndarray)
+    assert np.array_equal(got, pano.cpu().numpy())
+    assert np.array_equal(got_mask, mask.cpu().numpy())

@@ -98,7 +98,8 @@ def test_slice_with_jax_registration_matches_jax(images, jax_runs, branch):
     features = [convert.features_from_numpy(*f) for f in feats]
     matches = [convert.matches_from_numpy(*m) for m in matches]
     reg = engine._register_cameras(st, own.images, own.stack, features,
-                                   matches, low_stack=own.low_stack)
+                                   matches, uploader=own.uploader,
+                                   low_stack=own.low_stack)
     assert len(reg.cameras) == len(cams)
     for c, r in zip(reg.cameras, cams):
         np.testing.assert_allclose(c.K(), r.K(), rtol=1e-4)
@@ -142,7 +143,6 @@ def test_unknown_setting_raises():
     ("detector", "sift", "SIFT/BRISK/AKAZE"),
     ("detector", "akaze", "SIFT/BRISK/AKAZE"),
     ("detector", "brisk", "SIFT/BRISK/AKAZE"),
-    ("timelapse", "as_is", "timelapse"),
 ])
 def test_unported_setting_raises_not_implemented(setting, value, item):
     with pytest.raises(NotImplementedError) as e:
@@ -175,18 +175,98 @@ def test_ported_setting_constructs(setting, value):
     assert st.settings[setting] == value
 
 
-def test_canvas_over_the_blend_budget_raises():
-    """Two small tiles 12000 x 9000 pixels apart need 4.7 GB of multiband
-    accumulators, over the reference's 4 GB budget, where it blends in
-    strips: the port raises for ROADMAP queue 1 item 7 before it allocates
-    anything."""
-    stack = compose.TileStack(torch.zeros((2, 64, 64, 3)),
-                              torch.full((2, 64, 64), 255.0),
+def test_canvas_over_the_blend_budget_blends():
+    """Two small tiles 12000 x 9000 pixels apart need 4.7 GB of
+    accumulators by the reference's estimate, over its 4 GB budget: the
+    paste blends in X strips (the empty middle strip stays black), each
+    tile at its corner."""
+    rng = np.random.RandomState(0)
+    data = torch.as_tensor(rng.randint(1, 255, (2, 64, 64, 3)).astype(
+        np.float32))
+    stack = compose.TileStack(data, torch.full((2, 64, 64), 255.0),
                               np.asarray([(0, 0), (12000, 9000)]),
                               np.asarray([(64, 64), (64, 64)]))
-    with pytest.raises(NotImplementedError) as e:
-        compose.blend_stack(stack, None, "multiband", 5)
-    assert "ROADMAP queue 1: streamed and strip composite" in str(e.value)
+    pano, mask = compose.blend_stack(stack, None, "no", 5)
+    assert pano.shape == (9064, 12064, 3) and mask.shape == (9064, 12064)
+    assert torch.equal(pano[:64, :64], data[0].to(torch.uint8))
+    assert torch.equal(pano[9000:, 12000:], data[1].to(torch.uint8))
+    assert int(mask.sum()) == 2 * 64 * 64 * 255
+    assert int(pano.sum()) == int(data.to(torch.uint8).sum())
+
+
+@pytest.mark.parametrize("caller", [(True, True), (False, True),
+                                    (True, False)])
+@pytest.mark.parametrize("entry", ["stitch", "stitch_device",
+                                   "register_pair"])
+def test_tf32_is_off_inside_each_entry_and_restored(monkeypatch, caller,
+                                                    entry):
+    """Every public entry point computes in full float32 and leaves the
+    caller's TF32 flags as it found them."""
+    from stitching_tpu_torch import pipeline
+
+    seen = []
+
+    def probe(*args, **kwargs):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return "done"
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = caller
+    try:
+        if entry == "register_pair":
+            monkeypatch.setattr(pipeline, "_register_pair", probe)
+            out = pipeline.register_pair(None, None, device="cpu")
+        else:
+            monkeypatch.setattr(engine, "run" if entry == "stitch"
+                                else "run_device", probe)
+            out = getattr(Stitcher(device="cpu"), entry)([])
+        after = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert out == "done" and seen == [(False, False)]
+    assert after == caller
+
+
+def test_tf32_restored_when_the_entry_raises():
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with pytest.raises(StitchingError):
+            Stitcher(device="cpu").stitch([np.zeros((8, 8, 3), np.uint8)])
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_read_image_equals_cv2_without_cv2(monkeypatch, tmp_path):
+    """The port decodes with Pillow alone: a PNG (colour, and gray, which
+    both read as 3 BGR channels) equals `cv2.imread` of the same file with
+    OpenCV made unimportable; a written PNG reads back exactly."""
+    import cv2
+
+    from stitching_tpu_torch import io
+
+    imgs, _, _ = rotation_set(n=1, size=(64, 48))
+    cases = {"color.png": imgs[0], "gray.png": imgs[0][..., 1]}
+    want = {}
+    for name, img in cases.items():
+        cv2.imwrite(str(tmp_path / name), img)
+        want[name] = cv2.imread(str(tmp_path / name))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for name in cases:
+        got = io.read_image(str(tmp_path / name))
+        assert got.dtype == np.uint8 and got.shape == want[name].shape
+        np.testing.assert_array_equal(got, want[name])
+    io.write_image(str(tmp_path / "out.png"), imgs[0])
+    np.testing.assert_array_equal(io.read_image(str(tmp_path / "out.png")),
+                                  imgs[0])
+    with pytest.raises(StitchingError):
+        io.read_image(str(tmp_path / "missing.png"))
 
 
 @pytest.mark.parametrize("setting,value", [
