@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-1. prints the card (nvidia-smi name and power limit) and the versions;
+1. prints the card (nvidia-smi name and power limit), the versions and a
+   digest of the detectors' static tables;
 2. builds every CUDA kernel of the port from `stitching_tpu_torch/csrc`,
    then holds the two 2-NN kernels against their plain versions at the
    shapes where their tiles end (query rows around 16 and 64, targets
-   around 8, 64 and 1024, other descriptor widths, ties planted across
-   every kind of edge, forced grids), before anything is timed;
+   around 8, 64 and 1024, other descriptor widths, binary rows of 257,
+   486 and 512 bits among them, ties planted across every kind of edge,
+   forced grids), before anything is timed;
 3. drives the port's paths on 8 rendered views of 1600x1200 (the bench
    workload: focal 1400, +-0.6 rad), each once to warm up and once with
    the kernels' launch counters set to 0 just before and read just after,
@@ -27,6 +29,12 @@
    - `AffineStitcher().stitch` on a scan: 8 translated 1600x1200 crops of
      one textured scene, each crop's recovered offset from its neighbour
      held to 1 px of the truth,
+   - `Stitcher(detector=X).stitch` for X = sift, brisk and akaze (SIFT's
+     float rows through the float 2-NN kernel, BRISK's and AKAZE's
+     512-bit rows through the binary one) and `AffineStitcher(detector=
+     "sift").stitch` on the scan, each with its profiler stage table
+     (`registration/detect` among the stages) and its cameras held to the
+     truth,
    - `pipeline.register_pair` on the first two views at MEDIUM size,
    - the matchers on float descriptors (128 wide, made from a seed):
      `FeatureMatcher.match_features` and `ops.match.match_pair`;
@@ -36,7 +44,8 @@
    layout) through the streamed monolithic blend against the batched
    blend of the same stack; X strips on a wide row and Y strips on a tall
    grid against their monolithic blends; `Stitcher(timelapse="as_is")`
-   on 3 views against the CPU run's frames;
+   on 3 views against the CPU run's frames; each of SIFT, BRISK and AKAZE
+   on one MEDIUM view against the port's own CPU run;
 5. holds each kernel against its plain PyTorch version on the very inputs
    the paths gave it (the sampler at the batched LOW and the per-image
    FINAL calls), and times kernel, plain version and, where one exists, a
@@ -502,9 +511,11 @@ def check_sampler(calls, timed):
 # pairs of columns holding the same target row: one thread's two columns
 # of an `mma` tile, two lanes of a quad, two tiles of a step, one float
 # thread's next column, two float lanes, the segment's and the float
-# tile's edge (64), two steps, the binary staging chunk's edge (1024)
+# tile's edge (64), two steps, the binary staging chunk's edge (1024 rows at
+# 256 bits, 512 at 512 bits)
 TIE_COLUMNS = [(0, 1), (4, 6), (8, 17), (3, 11), (20, 21), (63, 64),
-               (60, 70), (127, 128), (1023, 1024), (1000, 1100), (2, 1299)]
+               (60, 70), (127, 128), (1023, 1024), (1000, 1100), (2, 1299),
+               (511, 512)]
 
 
 def boundary_sets(is_binary, nq, nt, d, rng):
@@ -574,9 +585,12 @@ def boundary_phase(dev):
         q, t, vt = boundary_sets(is_binary, 70, 9000, width, rng)
         check(q, t, vt, is_binary, f"{kind} 70 x 9000")
         # other descriptor widths (130 floats: rows not 16-byte aligned; 160
-        # and 256: the query chunk restaged with every step), as rows and as
-        # pairs of a batch, a pair of an image with itself included
-        for d in ((32, 100) if is_binary else (4, 64, 130, 160, 256)):
+        # and 256: the query chunk restaged with every step; binary rows of
+        # 257, 486 and 512 bits: 16 packed words, two `mma`s a tile), as
+        # rows and as pairs of a batch, a pair of an image with itself
+        # included
+        for d in ((32, 100, 257, 486, 512) if is_binary
+                  else (4, 64, 130, 160, 256)):
             q, t, vt = boundary_sets(is_binary, 77, 203, d, rng)
             check(q, t, vt, is_binary, f"{kind} width {d}")
             desc = np.stack([q, t[:77], t[77:154]])
@@ -585,20 +599,27 @@ def boundary_phase(dev):
             check_pairs(desc, valid, pairs, is_binary,
                         f"{kind} pairs width {d}")
             n_cases += 2
-        # every target invalid, with and without a padded column
-        for nq, nt in ((40, 256), (40, 300), (1, 1)):
-            q, t, vt = boundary_sets(is_binary, nq, nt, width, rng)
+        # every target invalid, with and without a padded column (and at
+        # 512 bits, where an invalid target's count is largest)
+        for nq, nt, d in ((40, 256, width), (40, 300, width), (1, 1, width),
+                          (40, 300, 512 if is_binary else width)):
+            q, t, vt = boundary_sets(is_binary, nq, nt, d, rng)
             got = check(q, t, np.zeros(nt, bool), is_binary,
-                        f"{kind} all invalid {nq} x {nt}")
+                        f"{kind} all invalid {nq} x {nt} x {d}")
             if not (bool((got[2] == 0).all())
                     and bool((got[0] >= 1e29).all())):
                 raise AssertionError(f"boundary {kind}: all targets invalid "
                                      "must give i0 = 0, d0 = 1e30")
             n_cases += 1
         # ties across every kind of edge, under the planned grid and forced
-        # ones (query rows a block, target segments)
+        # ones (query rows a block, target segments); binary rows at both
+        # packed widths (the staging chunk is 1024 rows at 256 bits, 512 at
+        # 512 bits)
         nt = 1300
-        for plan in (None, (64, 1), (128, 1), (64, 3), (128, 5), (64, 21)):
+        for plan, width in [(p_, w_) for w_ in ((256, 512) if is_binary
+                                                 else (128,))
+                            for p_ in (None, (64, 1), (128, 1), (64, 3),
+                                       (128, 5), (64, 21))]:
             if plan is not None:
                 rows = 64 if is_binary else plan[0]
                 units = -(-nt // nn.SPLIT_UNIT)
@@ -616,15 +637,15 @@ def boundary_phase(dev):
                 else:
                     q[k, :4] += 0.25
             d0, d1, i0 = check(q, t, np.ones(nt, bool), is_binary,
-                               f"{kind} ties, grid {plan}")
+                               f"{kind} ties, grid {plan}, width {width}")
             nn.launch_plan = planned
             want = torch.tensor([a for a, _ in TIE_COLUMNS], device=dev)
             k = len(TIE_COLUMNS)
             if not (torch.equal(i0[:k].long(), want)
                     and torch.equal(d0[:k], d1[:k])):
                 raise AssertionError(
-                    f"boundary {kind} ties, grid {plan}: the lower of two "
-                    "equal columns must win and d1 = d0")
+                    f"boundary {kind} ties, grid {plan}, width {width}: the "
+                    "lower of two equal columns must win and d1 = d0")
             n_cases += 1
     print(f"boundary shapes: {n_cases} cases of two_nn and two_nn_pairs, "
           "binary equal to plain, float within 1e-3 relative + 1e-3",
@@ -1035,6 +1056,64 @@ def timelapse_phase(imgs):
                       "cameras)", got, want, 0.999)
 
 
+def pattern_digest():
+    """sha256 of the detectors' static tables (BRISK's pattern and pair
+    tables, AKAZE's cell pairs), so that runs on two hosts can be seen to
+    use the same ones."""
+    import hashlib
+
+    from stitching_tpu_torch.ops import akaze, brisk
+
+    h = hashlib.sha256()
+    for table in (brisk.PATTERN_PTS, brisk.PATTERN_RING, brisk.PATTERN_SIGMAS,
+                  brisk.SHORT_PAIRS, brisk.LONG_PAIRS,
+                  *(akaze._PAIR_TABLES[g] for g in akaze._GRIDS)):
+        h.update(np.ascontiguousarray(table).tobytes())
+    return h.hexdigest()[:16]
+
+
+def detection_phase(view, dev):
+    """Each of SIFT, BRISK and AKAZE on one MEDIUM view on the card against
+    the port's own run on the CPU. Bars, stated before the first card run:
+    at least 99% of keypoints equal (position and validity; the card's
+    resize products, arctangents and histogram sums round otherwise, which
+    can reorder near-ties), and on the keypoints both keep at least 99% of
+    binary descriptor bits equal, or float descriptors within 1e-3."""
+    from stitching_tpu_torch import pipeline
+
+    for det, nf in (("sift", 500), ("brisk", 1024), ("akaze", 1024)):
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            stack = pipeline.stack_images([view], where)
+            with pipeline.no_tf32():
+                got = pipeline.detect_stack(stack, nfeatures=nf, variant=det)
+            runs.append({k: v.cpu() for k, v in got.items()})
+        card, cpu = runs
+        same = (card["xy"] == cpu["xy"]).all(-1) & (card["valid"]
+                                                    == cpu["valid"])
+        both = same & card["valid"]
+        kp_equal = float(same.float().mean())
+        if det == "sift":
+            diff = (card["desc"] - cpu["desc"]).abs()[both]
+            err = float(diff.max()) if diff.numel() else 0.0
+            d0 = float(((card["desc"] - cpu["desc"]) ** 2).sum(-1)[both]
+                       .max()) if diff.numel() else 0.0
+            what = (f"float rows: largest difference {err:.3g}, largest "
+                    f"squared distance of a card row to its CPU row {d0:.3g}")
+            ok = err <= 1e-3
+        else:
+            bits = float((card["desc"] == cpu["desc"])[both].float().mean())
+            what = f"descriptor bits equal {bits:.6f}"
+            ok = bits >= 0.99
+        print(f"detection {det} on one MEDIUM view {tuple(view.shape)}, card "
+              f"against CPU: keypoints equal {kp_equal:.6f} (valid "
+              f"{int(card['valid'].sum())} / {int(cpu['valid'].sum())}); "
+              f"{what}", flush=True)
+        if kp_equal < 0.99 or not ok:
+            raise AssertionError(f"detection {det}: the card's run is "
+                                 "beyond the stated bar from the CPU's")
+
+
 def counted_run(name, fn, wrappers, expect, recorders=()):
     """Drive one path: once to warm up, then with every kernel's launch
     count set to 0 (and the recorders emptied) just before and read just
@@ -1180,6 +1259,8 @@ def main():
     print(f"build: {len(kernels.KERNELS)} sources "
           f"({len(kernels.ENTRIES)} C entries) in {time.time() - t0:.1f} s",
           flush=True)
+
+    print(f"detector tables sha256 {pattern_digest()}", flush=True)
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -1366,6 +1447,31 @@ def main():
     reg_af = path_stages("affine", st_af, scan, pano_af)
     check_offsets(reg_af.cameras, offsets, pano_af.shape)
 
+    # ---- paths 6b: the SIFT, BRISK and AKAZE detectors ------------------
+    # Stitcher(detector=X) with every other default on the views, and
+    # AffineStitcher(detector="sift") on the scan; cameras held to the
+    # truth as the default path's (focal within 2%, yaw within 0.02 rad)
+    det_calls = {}
+    for det in ("sift", "brisk", "akaze", "affine_sift"):
+        if det == "affine_sift":
+            st_d, inputs = AffineStitcher(detector="sift"), scan
+        else:
+            st_d, inputs = Stitcher(detector=det), imgs
+        pano_d, wall_d, det_calls[det] = drive(
+            det, lambda st_d=st_d, inputs=inputs: st_d.stitch(inputs),
+            STITCH_LAUNCHES)
+        mp_d = pano_d.shape[0] * pano_d.shape[1] / 1e6
+        print(f"{det} stitch: wall_s={wall_d:.4f} pano={pano_d.shape} "
+              f"mp={mp_d:.3f} mp_per_s={mp_d / wall_d:.3f}", flush=True)
+        if pano_d.dtype != np.uint8 or pano_d.ndim != 3:
+            raise AssertionError(f"{det} panorama {pano_d.dtype} "
+                                 f"{pano_d.shape}")
+        reg_d = path_stages(det, st_d, inputs, pano_d, table=True)
+        if det == "affine_sift":
+            check_offsets(reg_d.cameras, offsets, pano_d.shape)
+        else:
+            check_cameras(det, reg_d.cameras, Rs_true, 0.02)
+
     # ---- path 7: one pair of frames ----------------------------------
     images_obj = Images.of(imgs[:2], st.medium_megapix, st.low_megapix,
                            st.final_megapix)
@@ -1429,7 +1535,8 @@ def main():
             ("stitch_device", lambda: stitch_device_phase(imgs, dev)),
             ("giant", lambda: giant_phase(dev, card)),
             ("strips", lambda: strips_phase(dev, card)),
-            ("timelapse", lambda: timelapse_phase(imgs))):
+            ("timelapse", lambda: timelapse_phase(imgs)),
+            ("detection card/cpu", lambda: detection_phase(gray[0], dev))):
         t0 = time.time()
         phase()
         torch.cuda.empty_cache()
@@ -1481,13 +1588,16 @@ def main():
     # ---- every kernel against its plain version at the paths' inputs --
     new_nn = {"gc": nn_gc, "surfaces": nn_cyl, "affine": nn_af}
     new_bs = bs_gc + bs_cyl + bs_af
+    det_bs = [c for calls in det_calls.values() for c in calls[2]]
     per_stitch = STITCH_LAUNCHES["bilinear_sample"]
     if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(nn_calls3) != 1
             or len(bs_calls) != per_stitch or len(bs_calls2) != per_stitch
             or len(bs_calls3) != per_stitch or len(rows_calls) != 2
             or len(fnn_calls) != 1 or len(frows_calls) != 2
             or any(len(c) != 1 for c in new_nn.values())
-            or len(new_bs) != 3 * per_stitch):
+            or any(len(c[0]) != 1 for c in det_calls.values())
+            or len(new_bs) != 3 * per_stitch
+            or len(det_bs) != len(det_calls) * per_stitch):
         raise AssertionError("kernel calls were not recorded")
     # the sampler's calls: one batched LOW warp, then B = 1 FINAL warps
     batches = [c[0][0].shape[0] for c in bs_calls3]
@@ -1501,28 +1611,48 @@ def main():
     for name, calls in new_nn.items():
         equal_two_nn_pairs(calls[0], f"two_nn_pairs (binary), the {name} "
                            "path's call")
+    equal_two_nn_pairs(det_calls["akaze"][0][0], "two_nn_pairs (binary, "
+                       "512 bits), the akaze path's call")
+    check_two_nn_pairs(det_calls["affine_sift"][0][0], "two_nn_pairs "
+                       "(float), the affine_sift path's call")
     results = {
         "two_nn_pairs (binary)": check_two_nn_pairs(
             nn_calls2[0], "two_nn_pairs (binary)"),
+        "two_nn_pairs (binary, 512 bits)": check_two_nn_pairs(
+            det_calls["brisk"][0][0], "two_nn_pairs (binary, 512 bits)"),
         "two_nn_pairs (float)": check_two_nn_pairs(
-            fnn_calls[0], "two_nn_pairs (float)"),
+            det_calls["sift"][0][0], "two_nn_pairs (float)"),
+        "two_nn_pairs (float, synthetic)": check_two_nn_pairs(
+            fnn_calls[0], "two_nn_pairs (float, synthetic)"),
         "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
         "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
         "bilinear_sample": check_sampler(
-            bs_calls + bs_calls2 + bs_calls3 + new_bs,
+            bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs,
             bs_calls + bs_calls2 + bs_calls3),
     }
     stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
     paths = {"two_nn_pairs (binary)": ("two_nn_pairs", stitches),
-             "two_nn_pairs (float)": ("two_nn_pairs", ("float_match",)),
+             "two_nn_pairs (binary, 512 bits)": ("two_nn_pairs",
+                                                 ("brisk", "akaze")),
+             "two_nn_pairs (float)": ("two_nn_pairs",
+                                      ("sift", "affine_sift")),
+             "two_nn_pairs (float, synthetic)": ("two_nn_pairs",
+                                                 ("float_match",)),
              "two_nn (binary)": ("two_nn", ("pair",)),
              "two_nn (float)": ("two_nn", ("float_match",)),
-             "bilinear_sample": ("bilinear_sample", stitches)}
+             "bilinear_sample": ("bilinear_sample",
+                                 stitches + tuple(det_calls))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
             "stitching_tpu/ops/pallas/two_nn.py:143"),
+        "two_nn_pairs (binary, 512 bits)": (
+            "stitching_tpu_torch/csrc/two_nn.cu",
+            "stitching_tpu/ops/pallas/two_nn.py:143"),
         "two_nn_pairs (float)": (
+            "stitching_tpu_torch/csrc/two_nn_float.cu",
+            "stitching_tpu/ops/pallas/two_nn.py:143"),
+        "two_nn_pairs (float, synthetic)": (
             "stitching_tpu_torch/csrc/two_nn_float.cu",
             "stitching_tpu/ops/pallas/two_nn.py:143"),
         "two_nn (binary)": (

@@ -32,15 +32,20 @@
 // bound by its 0.26 MB of bytes (0.3 us) and in practice by three launches.
 //
 // Design:
+// - Rows of up to 512 bits: ORB's 256, BRISK's 512 and AKAZE's 486 (the
+//   Pallas kernel takes any width). Everything below is templated on NW,
+//   the 32-bit words of a packed row: 8 for d <= 256, 16 for d <= 512; a
+//   call picks NW from d, and narrower rows are zero-padded.
 // - A pre-pass (`pack_rows`, one launch for every operand row of a call)
-//   packs each {0,1} float row into 8 32-bit words, one warp a row and one
-//   `__ballot_sync` per 32 columns, so the reads coalesce; rows narrower
-//   than 256 bits are zero-padded. It also writes each row's bit count s,
-//   once plain (the query's term) and once as a target (1024 if invalid).
+//   packs each {0,1} float row into NW 32-bit words, one warp a row and one
+//   `__ballot_sync` per 32 columns, so the reads coalesce. It also writes
+//   each row's bit count s, once plain (the query's term) and once as a
+//   target (2048 if invalid).
 // - Distances by the 1-bit tensor-core product
 //   `mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc`: one
-//   instruction gives popc(q & t) over all 256 bits for 16 query rows x 8
-//   targets. Hamming = s_q + s_t - 2 popc(q & t), exact in int32.
+//   instruction gives popc(q & t) over 256 bits for 16 query rows x 8
+//   targets; at 512 bits two of them accumulate into one C fragment.
+//   Hamming = s_q + s_t - 2 popc(q & t), exact in int32.
 //   (`.xor.popc` is deprecated for sm_90; `.and.popc` assembles for sm_90a.
 //   The int8 form m16n8k32 on {0,1} bytes was built and measured too: it
 //   needs 8 instructions and 8 times the bytes for the same tile, each
@@ -49,22 +54,25 @@
 //   form is a choice made when the kernel was designed, not a switch at
 //   run time. `wgmma` is not needed: a warp's strip of 16 x 500 is 63
 //   instructions.)
-// - A warp owns 16 query rows: its A fragment (4 registers a thread) stays
+// - A warp owns 16 query rows: its A fragments (NW / 2 registers a thread) stay
 //   in registers while it walks the block's target segment in increasing
 //   column order, 4 tiles of 8 columns a step, so that four independent
 //   `mma`s and their loads are in flight at once (a scheduler starts one
 //   `mma` about every 6 clocks, but only from independent chains).
-// - Targets are staged in shared memory 1024 at a time (32 B of words and
-//   a key a row) with 16-byte `cp.async` copies, any nt chunk by chunk.
-//   The two halves of every other group of 4 rows are swapped so that the
-//   B fragment's loads (8 rows x 4 words a warp) touch 32 different banks.
+// - Targets are staged in shared memory 32 KB of words at a time (1024
+//   rows of 32 B, or 512 of 64 B, and a key a row: under the 48 KB of
+//   static shared memory) with 16-byte `cp.async` copies, any nt chunk by
+//   chunk. A row's 16-byte quarters are permuted by the row's place in its
+//   tile (`swz`) so that the B fragments' loads (8 rows x 4 words a warp)
+//   touch 32 different banks at both widths.
 // - The fold is integer and free of branches: key = dist << 16 | (column -
 //   segment start), and a running (smallest, second smallest) key per row
 //   is three min/max instructions a distance. Keys are distinct, so the
 //   smallest key is the lowest column of the smallest distance and the
 //   second smallest key's distance is the minimum over the other columns:
-//   the contract's tie rule. An invalid target counts 1024 bits, which
-//   puts its distance at 768 or more; a segment is at most 65536 columns.
+//   the contract's tie rule. An invalid target counts 2048 bits, which
+//   puts its distance at 1536 or more, past any valid distance (at most
+//   512); a segment is at most 65536 columns.
 //   At the end of the segment the 4 lanes of a quad merge their keys by
 //   shuffles, and the keys become top2.cuh's (d0, d1, i0): 1e30 for an
 //   invalid distance, with i0 the segment's first column when even the
@@ -95,20 +103,29 @@
 
 namespace {
 
-constexpr int NW = 8;              // 32-bit words per 256-bit descriptor
 constexpr int kRowsPerWarp = 16;   // the mma's m
 constexpr int kThreads = 128;      // 4 warps
-constexpr int kChunk = 1024;       // targets staged at a time
+constexpr int kStageBytes = 32768; // target words staged at a time
 constexpr int kStep = 32;          // targets a step: 4 mma tiles of 8
-constexpr int kInvalidCount = 1024;  // bit count standing for an invalid target
-constexpr int kInvalidDist = 768;    // distances from here on are invalid targets
+// a target's bit count when it is invalid: an invalid target's distance is
+// then at least kInvalidCount - 512 = 1536 and a valid one's at most 512
+constexpr int kInvalidCount = 2048;
+constexpr int kInvalidDist = 1536;   // distances from here on are invalid targets
 constexpr int kNoDist = 0x2000;      // distances from here on are no column at all
 constexpr int kNoKey = 0x7fffffff;
 constexpr int kPadKey = 0x3fff0000;  // a chunk's columns past the segment's end
 constexpr int kMaxSeg = 1 << 16;
+// the largest key: distance s_q + kInvalidCount <= 2560 or a pad key's
+// s_q + 0x3fff, shifted by 16, plus a column; both stay below 2^31
+static_assert((512 + 0x3fff + 1LL) << 16 < 0x7fffffffLL, "key overflow");
+static_assert(kInvalidCount - 512 >= kInvalidDist && kInvalidDist > 512,
+              "valid and invalid distances overlap");
+static_assert(kInvalidCount + 512 < kNoDist, "invalid and pad keys overlap");
 
-// One warp per operand row. Rows [0, rows_q) come from desc_q, the rest
-// from desc_t; valid_q / valid_t may be null (all valid).
+// One warp per operand row, NW 32-bit words a row (8: up to 256 bits, 16:
+// up to 512). Rows [0, rows_q) come from desc_q, the rest from desc_t;
+// valid_q / valid_t may be null (all valid).
+template <int NW>
 __global__ void pack_rows(const float* __restrict__ desc_q,
                           const float* __restrict__ desc_t,
                           const uint8_t* __restrict__ valid_q,
@@ -141,14 +158,15 @@ __global__ void pack_rows(const float* __restrict__ desc_q,
   }
 }
 
-__device__ __forceinline__ void mma_and_popc(int (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -189,18 +207,33 @@ __device__ __forceinline__ top2::Best best_of_keys(int k0, int k1,
   return b;
 }
 
+// A row of NW words is Q = NW / 4 quarters of 16 bytes. In shared memory
+// row r keeps its quarter q at position q ^ swz(r), so that the B
+// fragments' loads (8 rows x 4 words a warp, one quarter at a time) touch
+// 32 different banks: rows r and r + 1 of a tile sit in the two 16-word
+// halves of the banks at NW = 16 (and in one half at NW = 8), and swz
+// spreads the rows that share a half over its Q quarters.
+template <int NW>
+__device__ __forceinline__ int swz(int r) {
+  return NW == 8 ? (r >> 2) & 1 : (r >> 1) & 3;
+}
+
 // words, count_q, count_t: the pre-pass's outputs, indexed by operand row.
 // A pair's query image qi starts at operand row qi * nq and its target
 // image at ti * nt; without a pair list the queries start at row 0 and the
 // targets at row t_base. seg: targets per blockIdx.y, a multiple of 8, at
 // most kMaxSeg.
+template <int NW>
 __global__ void __launch_bounds__(kThreads)
 two_nn_binary_kernel(const uint32_t* __restrict__ words,
                      const int* __restrict__ count_q,
                      const int* __restrict__ count_t,
                      const int* __restrict__ pair_ij, int t_base, int seg,
                      top2::Out out) {
-  __shared__ uint4 s_words[kChunk * 2];
+  constexpr int Q = NW / 4;                  // 16-byte quarters a row
+  constexpr int K = NW / 8;                  // m16n8k256 products a tile
+  constexpr int kChunk = kStageBytes / (NW * 4);   // 1024 or 512 targets
+  __shared__ uint4 s_words[kChunk * Q];
   __shared__ __align__(8) int s_key[kChunk];
 
   const int nq = out.nq, nt = out.nt;
@@ -216,42 +249,48 @@ two_nn_binary_kernel(const uint32_t* __restrict__ words,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;   // fragment row (A, C) and column (B)
-  const int t = lane % 4;   // word of each half (A, B), column pair (C)
+  const int t = lane % 4;   // word of each quarter (A, B), column pair (C)
   constexpr int rows_per_block = (kThreads / 32) * kRowsPerWarp;
   const int row_a = blockIdx.x * rows_per_block + warp * kRowsPerWarp + g;
   const int row_b = row_a + 8;
 
-  // A fragment: a0 = (row g, word t), a1 = (row g + 8, word t),
-  // a2 = (row g, word t + 4), a3 = (row g + 8, word t + 4); and each row's
-  // bit count, shifted to the key's distance field
-  uint32_t a[4] = {0u, 0u, 0u, 0u};
+  // A fragments, one per 256 bits k: a[4k] = (row g, word 8k + t),
+  // a[4k + 1] = (row g + 8, word 8k + t), a[4k + 2] = (row g, word 8k + 4
+  // + t), a[4k + 3] = (row g + 8, word 8k + 4 + t); and each row's bit
+  // count, shifted to the key's distance field
+  uint32_t a[4 * K];
+#pragma unroll
+  for (int i = 0; i < 4 * K; ++i) a[i] = 0u;
   int qk_a = 0, qk_b = 0;
-  if (row_a < nq) {
-    a[0] = q_words[(long long)row_a * NW + t];
-    a[2] = q_words[(long long)row_a * NW + t + 4];
-    qk_a = count_q[q_off + row_a] << 16;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (row_a < nq) {
+      a[4 * k] = q_words[(long long)row_a * NW + 8 * k + t];
+      a[4 * k + 2] = q_words[(long long)row_a * NW + 8 * k + 4 + t];
+    }
+    if (row_b < nq) {
+      a[4 * k + 1] = q_words[(long long)row_b * NW + 8 * k + t];
+      a[4 * k + 3] = q_words[(long long)row_b * NW + 8 * k + 4 + t];
+    }
   }
-  if (row_b < nq) {
-    a[1] = q_words[(long long)row_b * NW + t];
-    a[3] = q_words[(long long)row_b * NW + t + 4];
-    qk_b = count_q[q_off + row_b] << 16;
-  }
+  if (row_a < nq) qk_a = count_q[q_off + row_a] << 16;
+  if (row_b < nq) qk_b = count_q[q_off + row_b] << 16;
 
   int k0_a = kNoKey, k1_a = kNoKey, k0_b = kNoKey, k1_b = kNoKey;
   const int seg_begin = blockIdx.y * seg;
   const int seg_end = min(nt, seg_begin + seg);
-  const int swap = g >> 2;  // rows 4..7 of a group of 8 keep their halves swapped
+  const int sw = swz<NW>(g);   // the tile's rows start at multiples of 8
 
   for (int c0 = seg_begin; c0 < seg_end; c0 += kChunk) {
     const int cnt = min(kChunk, seg_end - c0);
     const int padded = (cnt + kStep - 1) / kStep * kStep;
     __syncthreads();
-    // stage: 2 x 16 bytes a row, zero rows and keys that never win up to a
+    // stage: Q x 16 bytes a row, zero rows and keys that never win up to a
     // whole step
-    for (int e = threadIdx.x; e < padded * 2; e += kThreads) {
-      const int r = e >> 1, half = e & 1;
-      cp_async16(s_words + r * 2 + (half ^ ((r >> 2) & 1)),
-                 t_words + (r < cnt ? (long long)(c0 + r) * 2 + half : 0),
+    for (int e = threadIdx.x; e < padded * Q; e += kThreads) {
+      const int r = e / Q, quarter = e % Q;
+      cp_async16(s_words + r * Q + (quarter ^ swz<NW>(r)),
+                 t_words + (r < cnt ? (long long)(c0 + r) * Q + quarter : 0),
                  r < cnt);
     }
     for (int e = threadIdx.x; e < padded; e += kThreads)
@@ -261,23 +300,26 @@ two_nn_binary_kernel(const uint32_t* __restrict__ words,
     __syncthreads();
 
     for (int r0 = 0; r0 < padded; r0 += kStep) {
-      // B fragments of 4 tiles: b0 = (word t, column g), b1 = (word t + 4,
-      // column g); and the keys of this thread's 2 columns of each
-      uint32_t b0[4], b1[4];
+      // B fragments of 4 tiles: b[u][q] = (word 4q + t, column g); and the
+      // keys of this thread's 2 columns of each
+      uint32_t b[4][Q];
       int2 tk[4];
       int c[4][4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const uint32_t* tw = reinterpret_cast<const uint32_t*>(s_words)
                              + (r0 + 8 * u + g) * NW + t;
-        b0[u] = tw[swap * 4];
-        b1[u] = tw[(swap ^ 1) * 4];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) b[u][q] = tw[(q ^ sw) * 4];
         tk[u] = *reinterpret_cast<const int2*>(s_key + r0 + 8 * u + 2 * t);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         c[u][0] = c[u][1] = c[u][2] = c[u][3] = 0;
-        mma_and_popc(c[u], a, b0[u], b1[u]);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          mma_and_popc(c[u], a[4 * k], a[4 * k + 1], a[4 * k + 2],
+                       a[4 * k + 3], b[u][2 * k], b[u][2 * k + 1]);
       }
       // C fragment: c0, c1 = row g, columns 2t, 2t + 1; c2, c3 = row g + 8.
       // key = (s_q + s_t - 2 popc(q & t)) << 16 | column
@@ -309,50 +351,70 @@ two_nn_binary_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-// scratch, in 32-bit units: words (rows * 8), bit counts as queries (rows)
+// the words a packed row takes: 8 for up to 256 bits, 16 for up to 512
+inline int words_per_row(int d) { return d <= 256 ? 8 : 16; }
+
+// scratch, in 32-bit units: words (rows * NW), bit counts as queries (rows)
 // and as targets (rows), partials (splits * batch * nq * 3 when splits > 1)
-int search(const float* desc_q, const float* desc_t, const uint8_t* valid_q,
-           const uint8_t* valid_t, const int* pair_ij, int* scratch,
-           long long scratch_ints, float* d0, float* d1, int* i0,
-           long long rows_q, long long rows, int nq, int nt, int d, int batch,
-           int pad_col, int rows_per_block, int splits, int seg,
-           cudaStream_t stream) {
-  if (d <= 0 || d > 32 * NW || nq <= 0 || nt <= 0 || batch <= 0 ||
-      rows_per_block != (kThreads / 32) * kRowsPerWarp || splits <= 0 ||
-      seg <= 0 ||
-      seg % 8 != 0 || seg > kMaxSeg || (long long)splits * seg < nt || batch > 65535 ||
-      splits > 65535 || rows > 0x7fffffffLL / 32)
-    return (int)cudaErrorInvalidValue;
-  const int row_blocks = (nq + rows_per_block - 1) / rows_per_block;
-  const long long partial = splits > 1 ? 3LL * splits * batch * nq : 0;
-  if (rows * (NW + 2) + partial > scratch_ints)
-    return (int)cudaErrorInvalidValue;
+template <int NW>
+int search_nw(const float* desc_q, const float* desc_t,
+              const uint8_t* valid_q, const uint8_t* valid_t,
+              const int* pair_ij, int* scratch, float* d0, float* d1,
+              int* i0, long long rows_q, long long rows, int nq, int nt,
+              int d, int batch, int pad_col, int splits, int seg,
+              cudaStream_t stream) {
   uint32_t* words = reinterpret_cast<uint32_t*>(scratch);
   int* count_q = scratch + rows * NW;
   int* count_t = count_q + rows;
   float* part = reinterpret_cast<float*>(scratch + rows * (NW + 2));
+  constexpr int rows_per_block = (kThreads / 32) * kRowsPerWarp;
 
-  pack_rows<<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
+  pack_rows<NW><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
       desc_q, desc_t, valid_q, valid_t, words, count_q, count_t, (int)rows_q,
       (int)rows, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const top2::Out out{d0, d1, i0, part, nq, nt, pad_col, splits, batch};
-  const dim3 grid(row_blocks, splits, batch);
-  two_nn_binary_kernel<<<grid, kThreads, 0, stream>>>(
+  const dim3 grid((nq + rows_per_block - 1) / rows_per_block, splits, batch);
+  two_nn_binary_kernel<NW><<<grid, kThreads, 0, stream>>>(
       words, count_q, count_t, pair_ij, pair_ij ? 0 : nq, seg, out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)top2::merge_after(out, stream);
 }
 
+int search(const float* desc_q, const float* desc_t, const uint8_t* valid_q,
+           const uint8_t* valid_t, const int* pair_ij, int* scratch,
+           long long scratch_ints, float* d0, float* d1, int* i0,
+           long long rows_q, long long rows, int nq, int nt, int d, int batch,
+           int pad_col, int rows_per_block, int splits, int seg,
+           cudaStream_t stream) {
+  if (d <= 0 || d > 512 || nq <= 0 || nt <= 0 || batch <= 0 ||
+      rows_per_block != (kThreads / 32) * kRowsPerWarp || splits <= 0 ||
+      seg <= 0 ||
+      seg % 8 != 0 || seg > kMaxSeg || (long long)splits * seg < nt || batch > 65535 ||
+      splits > 65535 || rows > 0x7fffffffLL / 32)
+    return (int)cudaErrorInvalidValue;
+  const int nw = words_per_row(d);
+  const long long partial = splits > 1 ? 3LL * splits * batch * nq : 0;
+  if (rows * (nw + 2) + partial > scratch_ints)
+    return (int)cudaErrorInvalidValue;
+  return nw == 8
+      ? search_nw<8>(desc_q, desc_t, valid_q, valid_t, pair_ij, scratch, d0,
+                     d1, i0, rows_q, rows, nq, nt, d, batch, pad_col, splits,
+                     seg, stream)
+      : search_nw<16>(desc_q, desc_t, valid_q, valid_t, pair_ij, scratch, d0,
+                      d1, i0, rows_q, rows, nq, nt, d, batch, pad_col, splits,
+                      seg, stream);
+}
+
 }  // namespace
 
-// desc: (b, n, d) float32 {0,1} with d <= 256; valid: (b, n) uint8;
+// desc: (b, n, d) float32 {0,1} with d <= 512; valid: (b, n) uint8;
 // pair_ij: (p, 2) int32; scratch: scratch_ints 32-bit units, 16-byte
-// aligned (layout above, rows = b * n, batch = 2 p); outputs (p, 2, n).
-// rows_per_block: 64, the query rows a block takes; splits x seg targets
-// cover n. Returns cudaGetLastError().
+// aligned (layout above, rows = b * n, batch = 2 p, NW = 8 for d <= 256
+// and 16 above); outputs (p, 2, n). rows_per_block: 64, the query rows a
+// block takes; splits x seg targets cover n. Returns cudaGetLastError().
 extern "C" int two_nn_pairs_binary(const float* desc, const uint8_t* valid,
                                    const int* pair_ij, int* scratch,
                                    long long scratch_ints, float* d0,
@@ -366,7 +428,7 @@ extern "C" int two_nn_pairs_binary(const float* desc, const uint8_t* valid,
                 splits, seg, stream);
 }
 
-// desc_q: (nq, d) and desc_t: (nt, d) float32 {0,1} with d <= 256;
+// desc_q: (nq, d) and desc_t: (nt, d) float32 {0,1} with d <= 512;
 // valid_t: (nt,) uint8; scratch as above with rows = nq + nt, batch = 1;
 // outputs (nq,). Returns cudaGetLastError().
 extern "C" int two_nn_binary(const float* desc_q, const float* desc_t,

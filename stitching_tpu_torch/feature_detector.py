@@ -1,11 +1,12 @@
-"""Feature detection component (ORB).
+"""Feature detection component.
 
 Port of `stitching_tpu/feature_detector.py`: the registry of detector
-choices (orb default / sift / brisk / akaze) with the same validation;
-this slice implements ORB (`ops/orb.py`), the others raise
-`NotImplementedError`. `detect` runs ONE batched pass for the whole image
-list (`pipeline.detect_stack`); the small per-keypoint fields land on host,
-the descriptors stay on the card.
+choices (orb default / sift / brisk / akaze) with the same validation,
+`detect`, `detect_with_masks`, `detect_features` and `draw_keypoints`.
+The detectors are `ops/orb.py`, `ops/sift.py`, `ops/brisk.py` and
+`ops/akaze.py`. `detect` runs ONE batched pass for the whole image list
+(`pipeline.detect_stack`); the small per-keypoint fields land on host, the
+descriptors stay on the card.
 """
 
 from collections import OrderedDict
@@ -25,15 +26,10 @@ class FeatureDetector:
         akaze=dict(is_binary=True, default_nfeatures=1024),
     )
     DEFAULT_DETECTOR = list(DETECTOR_CHOICES.keys())[0]
-    PORTED = ("orb",)
 
     def __init__(self, detector=DEFAULT_DETECTOR, device="cuda", **kwargs):
         if detector not in self.DETECTOR_CHOICES:
             raise StitchingError("invalid detector: " + str(detector))
-        if detector not in self.PORTED:
-            raise NotImplementedError(
-                f"detector={detector!r} is not ported yet (ROADMAP queue 1: "
-                "SIFT/BRISK/AKAZE)")
         self.detector_name = detector
         spec = self.DETECTOR_CHOICES[detector]
         self.is_binary = spec["is_binary"]
@@ -57,6 +53,11 @@ class FeatureDetector:
                     f" {img.shape[:2]}."
                 )
         return self.detect_on_stack(stack_images(imgs, self.device), masks)
+
+    def detect_features(self, img, mask=None):
+        """Detect on one BGR (or gray) uint8 image -> Features."""
+        return self.detect_on_stack(stack_images([img], self.device),
+                                    None if mask is None else [mask])[0]
 
     def detect_on_stack_dispatch(self, stack, masks=None):
         """Detect on a DeviceStack without copying to host: the stacked
@@ -88,3 +89,11 @@ class FeatureDetector:
         small = {k: out[k].cpu().numpy() for k in
                  ("xy", "response", "size", "angle_deg", "valid")}
         return self.features_from_host(out["desc"], small, stack.sizes)
+
+    @staticmethod
+    def draw_keypoints(img, features, color=(0, 255, 0), radius=3):
+        """Host-side keypoint overlay (the reference's draw_keypoints)."""
+        from .viz import draw_circles
+
+        return draw_circles(np.asarray(img).copy(), features.keypoints_np,
+                            radius, color)

@@ -140,3 +140,31 @@ class FeatureMatcher:
         for i in range(0, len(array), matrix_dimension):
             rows.append(array[i: i + matrix_dimension])
         return rows
+
+    @staticmethod
+    def get_all_img_combinations(imgs):
+        ii, jj = np.triu_indices(len(imgs), k=1)
+        for i, j in zip(ii, jj):
+            yield imgs[i], imgs[j]
+
+    @staticmethod
+    def draw_matches_matrix(imgs, features, matches, conf_thresh=1,
+                            inliers=False, **kwargs):
+        matches_matrix = FeatureMatcher.get_matches_matrix(matches)
+        for idx1, idx2 in zip(*np.triu_indices(len(imgs), k=1)):
+            match = matches_matrix[idx1][idx2]
+            if match.confidence < conf_thresh:
+                continue
+            yield idx1, idx2, FeatureMatcher.draw_matches(
+                imgs[idx1], features[idx1], imgs[idx2], features[idx2],
+                match, inliers=inliers, **kwargs)
+
+    @staticmethod
+    def draw_matches(img1, features1, img2, features2, match1to2,
+                     inliers=False, **kwargs):
+        from .viz import draw_matches as _draw
+
+        kps1 = np.asarray(features1.xy)
+        kps2 = np.asarray(features2.xy)
+        sel = match1to2.inliers_mask if inliers else match1to2.matches_valid
+        return _draw(img1, kps1, img2, kps2, match1to2.matches, sel)

@@ -40,8 +40,7 @@ from . import check, load, stream_ptr
 BIG = 1.0e30
 PAIRS_PAD = 8      # two_nn_pairs pads the target axis to a multiple of this
 ROWS_PAD = 128     # two_nn does, to a multiple of this
-MAX_BINARY_BITS = 256
-WORDS = MAX_BINARY_BITS // 32   # packed 32-bit words per binary row
+MAX_BINARY_BITS = 512
 SPLIT_UNIT = 64     # the target axis splits into multiples of this
 # per kernel (keyed by is_binary): the query rows a block may take, largest
 # first (the float kernel has a 128-row and a 64-row tile); the blocks per
@@ -105,17 +104,26 @@ def top2_by_segments(dist, n, pad, seg):
     return d0, d1, i0.clamp_max(n - 1).to(torch.int32)
 
 
+def binary_words(d):
+    """32-bit words of a packed binary row of `d` bits in the kernel: 8
+    up to 256 bits (ORB), 16 up to 512 (BRISK, AKAZE)."""
+    if not 0 < d <= MAX_BINARY_BITS:
+        raise ValueError(f"binary rows take 1 to {MAX_BINARY_BITS} bits, "
+                         f"not {d}")
+    return 8 if d <= 256 else 16
+
+
 def pack_bits_plain(desc):
-    """A {0,1} float row of up to 256 columns as 8 words of 32 bits (bit k
-    of word w is column 32 w + k, zero beyond the row) and its bit count:
-    (words (..., 8) int64 in [0, 2^32), count (...,) float32)."""
+    """A {0,1} float row of up to 512 columns as `binary_words(D)` words
+    of 32 bits (bit k of word w is column 32 w + k, zero beyond the row)
+    and its bit count: (words (..., W) int64 in [0, 2^32), count (...,)
+    float32)."""
     bits = desc > 0.5
     D = bits.shape[-1]
-    if D > MAX_BINARY_BITS:
-        raise ValueError("pack_bits_plain: at most 256 columns")
-    pad = bits.new_zeros(bits.shape[:-1] + (MAX_BINARY_BITS - D,))
+    words = binary_words(D)
+    pad = bits.new_zeros(bits.shape[:-1] + (32 * words - D,))
     bits = torch.cat([bits, pad], dim=-1).reshape(
-        bits.shape[:-1] + (WORDS, 32)).to(torch.int64)
+        bits.shape[:-1] + (words, 32)).to(torch.int64)
     weights = 1 << torch.arange(32, dtype=torch.int64, device=desc.device)
     return (bits * weights).sum(-1), bits.sum((-1, -2)).to(torch.float32)
 
@@ -219,11 +227,8 @@ def _check_desc(name, desc, ndim, is_binary):
         raise ValueError(f"{name}: descriptors must be contiguous float32 "
                          f"with {ndim} axes")
     if is_binary and desc.shape[-1] > MAX_BINARY_BITS:
-        raise NotImplementedError(
-            f"{name}: the binary CUDA kernel takes at most "
-            f"{MAX_BINARY_BITS} descriptor bits (ORB); wider binary "
-            "descriptors come with BRISK/AKAZE (ROADMAP queue 1: "
-            "SIFT/BRISK/AKAZE)")
+        raise ValueError(f"{name}: the binary kernel takes at most "
+                         f"{MAX_BINARY_BITS} descriptor bits")
 
 
 def two_nn_pairs(desc, valid, pair_ij, *, is_binary=True):
@@ -253,9 +258,9 @@ def two_nn_pairs(desc, valid, pair_ij, *, is_binary=True):
         is_binary = bool(is_binary)
         rows, splits, seg = launch_plan(N, N, 2 * P, _sm_count(dev),
                                         is_binary)
-        # per operand row: 8 words and two bit counts, or two norms
-        scratch = _scratch(dev, B * N * ((WORDS + 2) if is_binary else 2), N,
-                           2 * P, splits)
+        # per operand row: its packed words and two bit counts, or two norms
+        per_row = binary_words(D) + 2 if is_binary else 2
+        scratch = _scratch(dev, B * N * per_row, N, 2 * P, splits)
         entry = "two_nn_pairs_binary" if is_binary else "two_nn_pairs_float"
         status = load(entry)(
             desc.data_ptr(), valid.data_ptr(), pair_ij.data_ptr(),
@@ -299,8 +304,8 @@ def two_nn(desc_q, desc_t, valid_t, *, is_binary=True):
     with torch.cuda.device(dev):
         is_binary = bool(is_binary)
         rows, splits, seg = launch_plan(nq, nt, 1, _sm_count(dev), is_binary)
-        scratch = _scratch(dev, (nq + nt) * ((WORDS + 2) if is_binary else 1),
-                           nq, 1, splits)
+        per_row = binary_words(D) + 2 if is_binary else 1
+        scratch = _scratch(dev, (nq + nt) * per_row, nq, 1, splits)
         status = load("two_nn_binary" if is_binary else "two_nn_float")(
             desc_q.data_ptr(), desc_t.data_ptr(), valid_t.data_ptr(),
             scratch.data_ptr(), scratch.numel(), d0.data_ptr(),

@@ -205,16 +205,26 @@ def resize_nearest(mask, lh, lw):
     return out
 
 
-def _max3(score):
-    """3x3 SAME window max with NEG_INF padding."""
+def _window3(score, op, pad):
+    """3x3 SAME window reduction by `op` with `pad` beyond the edges."""
     h, w = score.shape[-2], score.shape[-1]
-    p = torch.nn.functional.pad(score, (1, 1, 1, 1), value=NEG_INF)
+    p = torch.nn.functional.pad(score, (1, 1, 1, 1), value=pad)
     out = None
     for dy in range(3):
         for dx in range(3):
             s = p[..., dy:dy + h, dx:dx + w]
-            out = s if out is None else torch.maximum(out, s)
+            out = s if out is None else op(out, s)
     return out
+
+
+def _max3(score):
+    """3x3 SAME window max with NEG_INF padding."""
+    return _window3(score, torch.maximum, NEG_INF)
+
+
+def _min3(score):
+    """3x3 SAME window min with -NEG_INF padding."""
+    return _window3(score, torch.minimum, -NEG_INF)
 
 
 def topk_stable(x, k):
@@ -222,6 +232,43 @@ def topk_stable(x, k):
     index first)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def select_candidates(cand, nfeatures, score_scale=1e-20, boost=1e30):
+    """The reference's final selection from per-level candidate lists
+    (dicts of (B, K_level, ...) tensors: score, xy, angle, desc, size and
+    inq, the in-quota flag): every in-quota candidate first, then the best
+    of the rest, by `score * score_scale + boost` in float32 (BRISK's and
+    AKAZE's scale ties every in-quota candidate, so candidate order ranks
+    them; SIFT's keeps the score). Padded to `nfeatures` rows."""
+    score_all = torch.cat(cand["score"], dim=1)
+    B = score_all.shape[0]
+    ok_all = score_all > -1e38
+    bonus = torch.where(torch.cat(cand["inq"], dim=1), boost, 0.0)
+    sel_score = torch.where(ok_all, score_all * score_scale + bonus,
+                            -math.inf)
+    n_out = min(nfeatures, sel_score.shape[1])
+    _, sel = topk_stable(sel_score, n_out)
+
+    def pick(v):
+        idx = sel.reshape(sel.shape + (1,) * (v.dim() - 2))
+        return torch.gather(v, 1, idx.expand(sel.shape + v.shape[2:]))
+
+    valid = pick(ok_all)
+    out = dict(
+        xy=pick(torch.cat(cand["xy"], dim=1)),
+        response=torch.where(valid, pick(score_all), 0.0),
+        size=pick(torch.cat(cand["size"], dim=1)),
+        angle_deg=torch.rad2deg(torch.remainder(
+            pick(torch.cat(cand["angle"], dim=1)), 2 * math.pi)),
+        desc=pick(torch.cat(cand["desc"], dim=1)) * valid[..., None],
+        valid=valid,
+    )
+    if n_out < nfeatures:
+        pad = nfeatures - n_out
+        out = {k: torch.cat([v, v.new_zeros((B, pad) + tuple(v.shape[2:]))],
+                            dim=1) for k, v in out.items()}
+    return out
 
 
 # per-keypoint window radius: BRIEF pattern offsets are clipped to

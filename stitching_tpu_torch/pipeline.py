@@ -6,7 +6,8 @@ living in device memory:
 - all images upload ONCE as a padded (B, H, W, C) stack (uint8 over the
   link, widened to float32 on the card);
 - per-resolution resizes are one batched gather over the stack;
-- detection runs once over the whole batch (`ops/orb.detect_orb`);
+- detection runs once over the whole batch (`DETECTORS`: ORB, SIFT,
+  BRISK or AKAZE over (B, H, W) planes);
 - matching + RANSAC runs the whole C(B,2) pair axis at once: the 2-NN is
   the CUDA kernel `ops/kernels/two_nn.two_nn_pairs`, ratio/union and
   RANSAC (homography, or the similarity for the affine matcher) are
@@ -28,10 +29,16 @@ from .ops.color import bgr_to_gray
 from .ops.fma import fma
 from .ops.kernels.two_nn import two_nn_pairs
 from .ops.match import match_pair, ratio_union
+from .ops.akaze import detect_akaze
+from .ops.brisk import detect_brisk
 from .ops.orb import detect_orb
+from .ops.sift import detect_sift
 from .ops.ransac import ransac_affine_partial, ransac_homography
 
 _BUCKET = 64
+# the detector of each `FeatureDetector` choice, over (B, H, W) planes
+DETECTORS = dict(orb=detect_orb, sift=detect_sift, brisk=detect_brisk,
+                 akaze=detect_akaze)
 
 
 def _round_up(x, m=_BUCKET):
@@ -163,10 +170,6 @@ def detect_stack(stack: DeviceStack, *, nfeatures, variant="orb",
     Returns a dict of stacked tensors: xy (B,N,2), response (B,N),
     size (B,N), angle_deg (B,N), desc (B,N,D), valid (B,N).
     """
-    if variant != "orb":
-        raise NotImplementedError(
-            f"detector={variant!r} is not ported yet (ROADMAP queue 1: "
-            "SIFT/BRISK/AKAZE)")
     data = stack.data
     dev = data.device
     B, h, w = data.shape[0], data.shape[1], data.shape[2]
@@ -185,7 +188,7 @@ def detect_stack(stack: DeviceStack, *, nfeatures, variant="orb",
                 mh, mw = m.shape[:2]
                 fm[i, :mh, :mw] = np.asarray(m) > 0
         region = region & torch.as_tensor(fm, device=dev)
-    return detect_orb(gray, region, nfeatures=nfeatures)
+    return DETECTORS[variant](gray, region, nfeatures=nfeatures)
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,9 @@ similarity matching, the affine estimate and adjuster, the affine warp, no
 wave correction and no exposure compensation. `SLICE` and `SLICE2` are two
 smaller configurations that switch stages off. `stitch` returns the
 panorama on the host; `stitch_device` keeps it on the device. Both set
-TF32 off for the call only (`pipeline.no_tf32`). Settings the port does
-not implement yet (the SIFT/BRISK/AKAZE detectors) raise
-`NotImplementedError` from the component that owns them, naming the
-setting and the ROADMAP item that ports it.
+TF32 off for the call only (`pipeline.no_tf32`). Every detector runs:
+ORB, SIFT (float descriptors, matched by the float 2-NN kernel), BRISK
+and AKAZE (512-bit rows).
 """
 
 import warnings

@@ -24,7 +24,8 @@ from stitching_tpu import engine as jax_engine
 from stitching_tpu.camera_adjuster import CameraAdjuster as JaxAdjuster
 from stitching_tpu.camera_estimator import CameraEstimator as JaxEstimator
 from stitching_tpu.ops.ransac import ransac_affine_partial as ransac_jax
-from stitching_tpu_torch import AffineStitcher, StitchingWarning, engine
+from stitching_tpu_torch import (AffineStitcher, StitchingWarning, convert,
+                                 engine)
 from stitching_tpu_torch.camera_adjuster import CameraAdjuster
 from stitching_tpu_torch.camera_estimator import CameraEstimator
 from stitching_tpu_torch.ops.ransac import ransac_affine_partial
@@ -186,3 +187,50 @@ def test_affine_default_override_warns():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         AffineStitcher(warper_type="affine", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_affine_cropped(images):
+    """The JAX package's `AffineStitcher()` with its default crop: its
+    cameras, crop rects (LOW) and panorama."""
+    st = stitching_tpu.AffineStitcher()
+    reg = jax_engine.register(st, images)
+    cams = [c.copy() for c in reg.cameras]
+    plan = jax_engine.plan_composition(st, reg)
+    rects = [tuple(int(v) for v in r) for r in plan.crop_rects]
+    return cams, rects, jax_engine.composite(st, reg, plan)
+
+
+def _rects(plan):
+    return [tuple(int(v) for v in r) for r in plan.crop_rects]
+
+
+def test_affine_stitcher_cropped_matches_jax(images, jax_affine_cropped):
+    """`AffineStitcher()` with its default crop. With the reference's
+    cameras: the crop rects equal, every value within 1 LSB. With the
+    port's own registration (offsets 1e-4 px apart) the DP seams may flip
+    on the shift: the rects equal and at least 99.9% of values within 1
+    LSB."""
+    cams, rects, ref = jax_affine_cropped
+    st = AffineStitcher(device="cpu")
+    reg = engine.register(st, images)
+    own = engine.plan_composition(st, reg)
+    assert _rects(own) == rects
+    pano = engine.composite(st, reg, own)
+    assert pano.shape == ref.shape and pano.dtype == np.uint8
+    diff = np.abs(pano.astype(np.int16) - ref.astype(np.int16))
+    assert (diff <= 1).mean() >= 0.999
+
+    reg = engine.register(st, images)
+    reg.cameras = convert.cameras_from_numpy(
+        [c.focal for c in cams], [c.aspect for c in cams],
+        [c.ppx for c in cams], [c.ppy for c in cams],
+        [np.asarray(c.R) for c in cams])
+    st.warper.set_scale(reg.cameras)
+    reg.scale = st.warper.scale
+    plan = engine.plan_composition(st, reg)
+    assert _rects(plan) == rects
+    pano = engine.composite(st, reg, plan)
+    assert pano.shape == ref.shape
+    diff = np.abs(pano.astype(np.int16) - ref.astype(np.int16))
+    assert diff.max() <= 1

@@ -416,6 +416,61 @@ def test_two_nn_cuda_ties_across_edges(cuda_device, monkeypatch, is_binary,
             assert float(d0[k]) == 1.0
 
 
+# binary widths on both sides of the packed row's two sizes (8 words up to
+# 256 bits, 16 up to 512): ORB's 256, BRISK's 512, AKAZE's 486
+_BINARY_WIDTHS = [1, 255, 256, 257, 486, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (64, 3), (64, 21)])
+@pytest.mark.parametrize("d", _BINARY_WIDTHS)
+def test_two_nn_binary_cuda_wide_rows(cuda_device, monkeypatch, d, plan):
+    """Both binary entries at every width up to 512 bits, equal to their
+    plain versions: invalid targets, planted duplicates, ties across the
+    staging chunk's edge at either width (512 and 1024 rows), an uneven
+    row count, under the planned grid and split target axes."""
+    import stitching_tpu_torch.ops.kernels.two_nn as mod
+
+    nq, nt = 70, 1300
+    if plan is not None:
+        units = -(-nt // mod.SPLIT_UNIT)
+        per_seg = -(-units // plan[1])
+        forced = (plan[0], -(-units // per_seg), per_seg * mod.SPLIT_UNIT)
+        monkeypatch.setattr(mod, "launch_plan", lambda *a: forced)
+    q, t, vt = _edge_sets(True, nq, nt, d)
+    for k, (a, b) in enumerate([(511, 512), (1023, 1024), (0, 1299)]):
+        t[a] = t[b] = q[k]
+        vt[a] = vt[b] = True
+    _check_two_nn(cuda_device, q, t, vt, True)
+    desc = np.stack([q[:61], t[:61], t[61:122], t[122:183]])
+    valid = np.stack([np.ones(61, bool), vt[:61], vt[61:122], vt[122:183]])
+    pairs = np.asarray([[0, 1], [0, 2], [1, 3], [2, 2]], np.int32)
+    _check_two_nn_pairs(cuda_device, desc, valid, pairs, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [257, 486, 512])
+def test_two_nn_binary_cuda_wide_fragment_layout(cuda_device, d):
+    """`test_two_nn_binary_cuda_fragment_layout` with the flipped bits in
+    the second 256 (the second `mma` of a tile): dist(r, c) = r + c, and
+    an invalid target at 512 + 4 bits' distance never wins."""
+    nq, nt = 48, 100
+    base = (np.random.RandomState(9).rand(d) > 0.5).astype(np.float32)
+    q = np.stack([base] * nq)
+    t = np.stack([base] * nt)
+    for r in range(nq):
+        q[r, d - r:] = 1 - q[r, d - r:]
+    for c in range(nt):
+        k = nt - 1 - c
+        t[c, d - 1 - k - nq:d - 1 - nq] = 1 - t[c, d - 1 - k - nq:d - 1 - nq]
+    vt = np.ones(nt, bool)
+    vt[nt - 1 - 4] = False
+    d0, d1, i0 = _check_two_nn(cuda_device, q, t, vt, True)
+    for r in range(nq):
+        assert int(i0[r]) == nt - 1
+        assert float(d0[r]) == r and float(d1[r]) == r + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("splits", [1, 2])
 @pytest.mark.parametrize("nq", [1, 127, 128, 129, 513])

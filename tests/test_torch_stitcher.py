@@ -139,16 +139,27 @@ def test_unknown_setting_raises():
         Stitcher(device="cpu", **SLICE, not_a_setting=1)
 
 
-@pytest.mark.parametrize("setting,value,item", [
-    ("detector", "sift", "SIFT/BRISK/AKAZE"),
-    ("detector", "akaze", "SIFT/BRISK/AKAZE"),
-    ("detector", "brisk", "SIFT/BRISK/AKAZE"),
+@pytest.mark.parametrize("setting,value,nfeatures", [
+    ("detector", "sift", 500),
+    ("detector", "akaze", 1024),
+    ("detector", "brisk", 1024),
 ])
-def test_unported_setting_raises_not_implemented(setting, value, item):
-    with pytest.raises(NotImplementedError) as e:
-        Stitcher(device="cpu", **{**SLICE, setting: value})
-    assert setting in str(e.value) and item in str(e.value)
-    assert "ROADMAP" in str(e.value)
+def test_unported_setting_raises_not_implemented(setting, value, nfeatures):
+    """The detectors that once raised construct now, with the reference's
+    settings: its feature count (`nfeatures` reaches orb and sift only,
+    the others keep their default), descriptor kind and ratio-test
+    confidence."""
+    st = Stitcher(device="cpu", **{**SLICE, setting: value, "nfeatures": 77})
+    ref = stitching_tpu.Stitcher(**{**SLICE, setting: value,
+                                    "nfeatures": 77})
+    assert st.settings == ref.settings
+    assert st.detector.detector_name == value
+    assert st.detector.nfeatures == (77 if value == "sift" else nfeatures)
+    assert st.detector.nfeatures == ref.detector.nfeatures
+    assert st.detector.is_binary == ref.detector.is_binary == (
+        value != "sift")
+    assert st.matcher.match_conf == ref.matcher.match_conf == (
+        0.65 if value == "sift" else 0.3)
 
 
 def test_default_settings_construct():

@@ -105,6 +105,32 @@ def test_two_nn_pairs_plain_float_close_to_pallas(case):
     assert_two_nn_close(got, ref, desc[pairs], desc[pairs[:, ::-1]])
 
 
+@pytest.mark.parametrize("d", [257, 486, 512])
+def test_binary_plain_wide_rows_equal_pallas(d):
+    """BRISK's 512 bits, AKAZE's 486 and an uneven 257: both plain
+    versions equal the Pallas kernels exactly (invalid targets, planted
+    duplicates, a pair of an image with itself)."""
+    rng = np.random.RandomState(d)
+    desc = (rng.rand(3, 61, d) > 0.5).astype(np.float32)
+    desc[1, 10:20] = desc[1, 0:10]
+    desc[2, :15] = desc[0, 20:35]
+    valid = rng.rand(3, 61) > 0.1
+    pairs = np.asarray([[0, 1], [0, 2], [1, 2], [1, 1]], np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = [np.asarray(x) for x in two_nn_pairs_jax(
+            jnp.asarray(desc), jnp.asarray(valid), jnp.asarray(pairs),
+            is_binary=True)]
+    got = [x.numpy() for x in two_nn_pairs_plain(
+        torch.as_tensor(desc), torch.as_tensor(valid),
+        torch.as_tensor(pairs))]
+    for r, g in zip(ref, got):
+        assert r.dtype == g.dtype and r.shape == g.shape
+        np.testing.assert_array_equal(g, r)
+    ref = _pallas_two_nn(desc[0], desc[2], valid[2], True)
+    for r, g in zip(ref, _plain_two_nn(desc[0], desc[2], valid[2], True)):
+        np.testing.assert_array_equal(g, r)
+
+
 @pytest.mark.parametrize("is_binary", [True, False])
 def test_two_nn_cpu_tensor_runs_plain_version(is_binary):
     args = [torch.as_tensor(x) for x in _rect_descriptors(is_binary)]
@@ -180,7 +206,7 @@ def test_top2_by_segments_duplicates_across_segment_edges(nt, segments):
         assert int(got[2][0]) == seg - 1 and float(got[1][0]) == 1.0
 
 
-@pytest.mark.parametrize("d", [32, 100, 256])
+@pytest.mark.parametrize("d", [32, 100, 256, 257, 486, 512])
 def test_packed_words_give_the_plain_hamming_distances(d):
     """The packer and `s_q + s_t - 2 popc(q & t)` on packed words equal the
     Hamming distances the plain version takes from a float product."""
@@ -191,7 +217,8 @@ def test_packed_words_give_the_plain_hamming_distances(d):
     t[7] = 1.0
     q_words, q_count = pack_bits_plain(q)
     t_words, t_count = pack_bits_plain(t)
-    assert q_words.shape == (37, 8) and int(q_words.max()) < 2 ** 32
+    assert q_words.shape == (37, 8 if d <= 256 else 16)
+    assert int(q_words.max()) < 2 ** 32
     assert torch.equal(q_count, q.sum(-1)) and float(t_count[7]) == d
     assert int(q_words[:, -(-d // 32):].abs().sum()) == 0    # zero padding
     got = hamming_from_words(q_words, q_count, t_words, t_count)
