@@ -37,8 +37,16 @@
      truth,
    - `pipeline.register_pair` on the first two views at MEDIUM size,
    - the matchers on float descriptors (128 wide, made from a seed):
-     `FeatureMatcher.match_features` and `ops.match.match_pair`;
-4. the slice-6 phases: the streamed FINAL pass against the batched one on
+     `FeatureMatcher.match_features` and `ops.match.match_pair`,
+   - `Stitcher().stitch_verbose` (the step-by-step component API: no
+     sampler launch, one 2-NN launch), with every artifact's name checked,
+     its wall beside a `stitch()` wall and a fenced stage table,
+   - `cli.stitch.main()` in this process on the views written as PNG, its
+     panorama equal to `Stitcher().stitch` on the same files;
+4. the slice-8 phases: the CLI in a process of its own on 3 views, with
+   and without -v; `stitch_verbose` on 3 views against the CPU's run with
+   the card's registration; the verbose run's cameras saved and loaded;
+   then the slice-6 phases: the streamed FINAL pass against the batched one on
    the same cameras; `Stitcher.stitch_device` on a prestaged stack; a
    109.4 MP canvas (6 tiles of 5120x4096, `scripts/giant_bench.py`'s
    layout) through the streamed monolithic blend against the batched
@@ -71,6 +79,7 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 import copy
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1232,6 +1241,151 @@ def float_features(n_images, n, device, seed=0):
     return feats
 
 
+VERBOSE_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 0}
+
+
+class EncodeClock:
+    """Stands in for `verbose._io.write_image`: the artifacts are written
+    as before, and the seconds spent writing them are summed."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds = 0.0
+        self.count = 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.time()
+        out = self.fn(*args, **kwargs)
+        self.seconds += time.time() - t0
+        self.count += 1
+        return out
+
+
+def check_verbose_names(names, n):
+    """The verbose run's artifacts with the default settings (crop on):
+    one of each per kept view of 01, 04, 05, 07 and 08 (seam mask and
+    compensated), both 06, all three 09, and at least n - 1 of 02 (the
+    pairs over the confidence threshold)."""
+    want = {"00_stitcher.txt", "03_matches_graph.txt",
+            "06_estimated_mask_to_crop.jpg", "06_lir.jpg", "09_result.jpg",
+            "09_result_with_seam_lines.jpg",
+            "09_result_with_seam_polygons.jpg"}
+    for i in range(1, n + 1):
+        want |= {f"01_features_img{i}.jpg", f"04_warped_img{i}.jpg",
+                 f"05_timelapse_img{i}.jpg",
+                 f"07_timelapse_cropped_img{i}.jpg",
+                 f"08_seam_mask{i}.jpg", f"08_compensated{i}.jpg"}
+    pairs = {f"02_matches_img{i}_to_img{j}.jpg" for i in range(1, n + 1)
+             for j in range(1, n + 1) if i != j}
+    got = set(names)
+    matches = got & pairs
+    if got - matches != want or len(matches) < n - 1:
+        raise AssertionError(
+            f"verbose artifacts: missing {sorted(want - got)}, unexpected "
+            f"{sorted(got - want - pairs)}, {len(matches)} match pictures")
+    return len(matches)
+
+
+def keep_registration(st):
+    """Wrap a stitcher's detector, matcher and wave corrector so that the
+    features, matches and final cameras of its next run are kept."""
+    state = {}
+
+    def keep(name, fn):
+        def wrapped(*args):
+            state[name] = fn(*args)
+            return state[name]
+        return wrapped
+
+    st.detector.detect = keep("features", st.detector.detect)
+    st.matcher.match_features = keep("matches", st.matcher.match_features)
+    st.wave_corrector.correct = keep("cameras", st.wave_corrector.correct)
+    return state
+
+
+def verbose_card_vs_cpu(imgs, tmp):
+    """`stitch_verbose` on 3 views on the card, then on the CPU with the
+    card's features, matches and cameras standing in for its registration:
+    the same panorama shape, every value within 1 LSB, 99.9% equal."""
+    import dataclasses
+    import os
+
+    from stitching_tpu_torch import Stitcher
+
+    st = Stitcher()
+    state = keep_registration(st)
+    os.makedirs(os.path.join(tmp, "card3"))
+    os.makedirs(os.path.join(tmp, "cpu3"))
+    pano = st.stitch_verbose(imgs[:3], verbose_dir=os.path.join(tmp, "card3"))
+    feats = [dataclasses.replace(f, desc=f.desc.cpu())
+             for f in state["features"]]
+    cams = [c.copy() for c in state["cameras"]]
+    cpu = Stitcher(device="cpu")
+    cpu.detector.detect = lambda _: feats
+    cpu.matcher.match_features = lambda _: state["matches"]
+    cpu.camera_estimator.estimate = lambda f, m: cams
+    cpu.camera_adjuster.adjust = lambda f, m, c: c
+    cpu.wave_corrector.correct = lambda c: c
+    t0 = time.time()
+    want = cpu.stitch_verbose(imgs[:3],
+                              verbose_dir=os.path.join(tmp, "cpu3"))
+    print(f"verbose, 3 views on the CPU: {time.time() - t0:.1f} s",
+          flush=True)
+    lsb_check("verbose panorama, 3 views (card against CPU, the card's "
+              "registration)", pano, want, 0.999)
+    if sorted(os.listdir(os.path.join(tmp, "card3"))) != sorted(
+            os.listdir(os.path.join(tmp, "cpu3"))):
+        raise AssertionError("verbose, 3 views: the card and the CPU wrote "
+                             "other artifacts")
+
+
+def registration_phase(cameras, scale, tmp):
+    """The verbose run's cameras saved and loaded: every value equal."""
+    import os
+
+    from stitching_tpu_torch.registration import (load_registration,
+                                                  save_registration)
+
+    path = os.path.join(tmp, "registration.npz")
+    save_registration(path, cameras, indices=list(range(len(cameras))),
+                      scale=scale)
+    back = load_registration(path)
+    same = (len(back["cameras"]) == len(cameras)
+            and back["scale"] == scale
+            and list(back["indices"]) == list(range(len(cameras)))
+            and all((a.focal, a.aspect, a.ppx, a.ppy)
+                    == (b.focal, b.aspect, b.ppx, b.ppy)
+                    and np.array_equal(a.R, np.asarray(b.R, np.float32))
+                    for a, b in zip(back["cameras"], cameras)))
+    print(f"registration: {len(cameras)} cameras and the scale {scale:.4f} "
+          f"through {os.path.getsize(path)} bytes of .npz, round trip "
+          f"{'exact' if same else 'WRONG'}", flush=True)
+    if not same:
+        raise AssertionError("registration: the loaded cameras differ")
+
+
+def cli_subprocess(paths, tmp):
+    """`python -m stitching_tpu_torch.cli.stitch` on 3 views, with and
+    without -v, in processes of their own: each must exit 0 and write its
+    panorama."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for extra in ([], ["-v", "--verbose_dir", os.path.join(tmp, "cli_v")]):
+        out = os.path.join(tmp, f"cli3{'_v' if extra else ''}.jpg")
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m", "stitching_tpu_torch.cli.stitch",
+             *paths[:3], "--output", out, *extra], cwd=root,
+            capture_output=True, text=True, timeout=600)
+        print(f"cli subprocess {' '.join(extra) or '(default)'}: exit "
+              f"{run.returncode} in {time.time() - t0:.1f} s, output "
+              f"{os.path.exists(out)}", flush=True)
+        if run.returncode != 0 or not os.path.exists(out):
+            raise AssertionError("cli subprocess failed: "
+                                 + run.stderr[-2000:])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1524,9 +1678,105 @@ def main():
         raise AssertionError("the float matchers did not recover the "
                              "synthetic shift")
 
+    # ---- path 9: verbose mode, the step-by-step component API ----------
+    import os
+    import tempfile
+    from unittest import mock
+
+    from stitching_tpu_torch import io, verbose
+    from stitching_tpu_torch.cli import stitch as cli_stitch
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    st_v = Stitcher()
+    kept = keep_registration(st_v)
+    encode = EncodeClock(verbose._io.write_image)
+    verbose._io.write_image = encode
+    vdir = os.path.join(tmp, "verbose")
+
+    def verbose_run():
+        shutil.rmtree(vdir, ignore_errors=True)
+        os.makedirs(vdir)
+        encode.seconds, encode.count = 0.0, 0
+        return st_v.stitch_verbose(imgs, verbose_dir=vdir)
+
+    t0 = time.time()
+    pano_s = st_v.stitch(imgs)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    pano_v, wall_v, (nn_v, _, _) = drive("verbose", verbose_run,
+                                         VERBOSE_LAUNCHES)
+    verbose._io.write_image = encode.fn
+    n_pairs = check_verbose_names(os.listdir(vdir), N_VIEWS)
+    mp_v = pano_v.shape[0] * pano_v.shape[1] / 1e6
+    print(f"verbose stitch: wall_s={wall_v:.4f} (stitch() wall_s="
+          f"{wall_s:.4f} in the same call) pano={pano_v.shape} mp={mp_v:.3f} "
+          f"artifacts={len(os.listdir(vdir))} (match pictures {n_pairs}) "
+          f"encode_s={encode.seconds:.4f} over {encode.count} writes; "
+          f"stitch() pano={pano_s.shape}", flush=True)
+    if pano_v.dtype != np.uint8 or pano_v.ndim != 3 or not (
+            0.9 * pano_s.shape[1] <= pano_v.shape[1] <= 1.1 * pano_s.shape[1]):
+        raise AssertionError(f"verbose panorama {pano_v.shape} against "
+                             f"stitch()'s {pano_s.shape}")
+    check_cameras("verbose", kept["cameras"], Rs_true, 0.02)
+    # where its time goes: once more, each stage fenced (the two warps,
+    # LOW and FINAL, add up under warp_at; every stage's artifact writes
+    # are inside it and are summed apart as encode_s)
+    clock_v = StageClock()
+    stages_v = ("_dump_features", "_dump_matches", "_dump_subset",
+                "_warp_at", "_dump_timelapse", "_dump_crop", "_dump_seams",
+                "_dump_compensation", "_blend", "_dump_seam_viz")
+    saved_v = {n: getattr(verbose, n) for n in stages_v}
+    for n in stages_v:
+        setattr(verbose, n, clock_v.wrap(n.lstrip("_"), saved_v[n]))
+    verbose._io.write_image = encode
+    t0 = time.time()
+    verbose_run()
+    torch.cuda.synchronize()
+    fenced_v = time.time() - t0
+    verbose._io.write_image = encode.fn
+    for n, fn in saved_v.items():
+        setattr(verbose, n, fn)
+    print(f"verbose stages (fenced): total_s={fenced_v:.4f} "
+          + " ".join(f"{k}={v:.4f}" for k, v in clock_v.seconds.items())
+          + f"; encode_s={encode.seconds:.4f} over {encode.count} writes, "
+          f"registration (estimate, adjust, wave) and the rest "
+          f"{fenced_v - sum(clock_v.seconds.values()):.4f}", flush=True)
+
+    # ---- path 10: the stitch CLI, in this process --------------------
+    view_files = [os.path.join(tmp, f"view{i}.png") for i in range(N_VIEWS)]
+    for name, im in zip(view_files, imgs):
+        io.write_image(name, im)
+    cli_out = os.path.join(tmp, "cli_pano.png")
+
+    def cli_run():
+        with mock.patch.object(sys, "argv", ["stitch", *view_files,
+                                             "--output", cli_out]):
+            cli_stitch.main()
+
+    _, wall_cli, (nn_cli, _, bs_cli) = drive("cli", cli_run, STITCH_LAUNCHES)
+    got_cli = io.read_image(cli_out)
+    want_cli = Stitcher().stitch(view_files)
+    print(f"cli: wall_s={wall_cli:.4f} pano={got_cli.shape}, equal to "
+          f"Stitcher().stitch on the files: "
+          f"{np.array_equal(got_cli, want_cli)}", flush=True)
+    if not np.array_equal(got_cli, want_cli):
+        raise AssertionError("cli: the written panorama differs from "
+                             "Stitcher().stitch on the same files")
+
     pipeline.two_nn_pairs = rec_pairs.fn
     match.two_nn = rec_rows.fn
     compose.bilinear_sample = rec_bs.fn
+
+    for name, phase in (
+            ("cli subprocess", lambda: cli_subprocess(view_files, tmp)),
+            ("verbose card/cpu", lambda: verbose_card_vs_cpu(imgs, tmp)),
+            ("registration", lambda: registration_phase(
+                kept["cameras"], st_v.warper.scale, tmp))):
+        t0 = time.time()
+        phase()
+        print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)
+    tmp_dir.cleanup()
 
     # ---- slice 6: streamed against batched, the device entry, the
     # giant canvas, strips and timelapse --------------------------------
@@ -1611,6 +1861,12 @@ def main():
     for name, calls in new_nn.items():
         equal_two_nn_pairs(calls[0], f"two_nn_pairs (binary), the {name} "
                            "path's call")
+    if len(nn_v) != 1 or len(nn_cli) != 1 or len(bs_cli) != per_stitch:
+        raise AssertionError("verbose/cli kernel calls were not recorded")
+    equal_two_nn_pairs(nn_v[0], "two_nn_pairs (binary), the verbose path's "
+                       "call")
+    equal_two_nn_pairs(nn_cli[0], "two_nn_pairs (binary), the cli path's "
+                       "call")
     equal_two_nn_pairs(det_calls["akaze"][0][0], "two_nn_pairs (binary, "
                        "512 bits), the akaze path's call")
     check_two_nn_pairs(det_calls["affine_sift"][0][0], "two_nn_pairs "
@@ -1627,11 +1883,12 @@ def main():
         "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
         "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
         "bilinear_sample": check_sampler(
-            bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs,
+            bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs + bs_cli,
             bs_calls + bs_calls2 + bs_calls3),
     }
     stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
-    paths = {"two_nn_pairs (binary)": ("two_nn_pairs", stitches),
+    paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
+                                       stitches + ("verbose", "cli")),
              "two_nn_pairs (binary, 512 bits)": ("two_nn_pairs",
                                                  ("brisk", "akaze")),
              "two_nn_pairs (float)": ("two_nn_pairs",
@@ -1641,7 +1898,7 @@ def main():
              "two_nn (binary)": ("two_nn", ("pair",)),
              "two_nn (float)": ("two_nn", ("float_match",)),
              "bilinear_sample": ("bilinear_sample",
-                                 stitches + tuple(det_calls))}
+                                 stitches + tuple(det_calls) + ("cli",))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",

@@ -8,8 +8,9 @@ timings, launch capture, the profiler) are stubbed, the launch counts are
 not checked (a CPU tensor runs a kernel's plain version, which does not
 count), the 8-view workloads shrink to 3 views at the bench's spacing
 between neighbours and 3 scan crops, and the giant canvas and the strip
-layouts to an eighth of their size (under a 1-byte budget). It finds wrong shapes, arguments and
-control flow in the script and in the paths it drives; it can say nothing
+layouts to an eighth of their size (under a 1-byte budget); the CLI's
+subprocess runs are skipped. It finds wrong shapes, arguments and control
+flow in the script and in the paths it drives; it can say nothing
 of the kernels or of any time. Takes 2-3 minutes on a few cores.
 """
 
@@ -81,6 +82,9 @@ def main():
     cs.launched_kernels = lambda fn, expect, what: expect
     cs.two_nn_launches = lambda *args, **kwargs: 1
     cs.profile_stitch = lambda st, imgs: print("profile: CUDA only")
+    # a process of its own runs on the card: the in-process CLI run and
+    # the test suite cover the same code here
+    cs.cli_subprocess = lambda paths, tmp: print("cli subprocess: CUDA only")
     cs.counted_run = counted_run
     rotation_set = cs.rotation_set
     # 3 views with the 8-view set's spacing between neighbours

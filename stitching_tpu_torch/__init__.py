@@ -9,5 +9,7 @@ exposure); `Stitcher.stitch_device` keeps the panorama on the card;
 the engine's stages.
 """
 
+__version__ = "0.1.0"
+
 from .errors import StitchingError, StitchingWarning  # noqa: F401
 from .stitcher import SLICE, SLICE2, AffineStitcher, Stitcher  # noqa: F401

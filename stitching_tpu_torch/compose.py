@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .ops.blend import distance_transform_l1
+from .ops.blend import _to_u8, distance_transform_l1
 from .ops.fma import fma
 from .ops.kernels.bilinear_sample import bilinear_sample
 from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
@@ -48,10 +48,6 @@ from .pipeline import DeviceStack, resize_stack
 
 def _round_up(x, m=64):
     return int(-(-x // m) * m)
-
-
-def _to_u8(img):
-    return torch.round(img).clamp(0, 255).to(torch.uint8)
 
 
 @dataclasses.dataclass(frozen=True)

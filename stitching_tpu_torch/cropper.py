@@ -10,9 +10,12 @@ the per-image crops at a resolution aspect.
 Rect algebra lives in module functions over a minimal `Rectangle` value
 type, on the host. The engine calls `prepare_from_mask` with the panorama
 mask it composited on the device and applies the rects with
-`compose.slice_stack`. The reference's host-list planning (`prepare`,
-`crop_images`), its static aliases and `Rectangle.draw_on` are not ported
-(ROADMAP queue 1: host extras).
+`compose.slice_stack`. The step-by-step API plans from host lists:
+`prepare` composites the panorama mask on the cropper's device
+(`estimate_panorama_mask`, `Blender.create_panorama`), `crop_images` /
+`crop_img` slice host arrays, `Rectangle.draw_on` draws the LIR, and the
+reference's static aliases (`get_zero_center_corners`, `get_rectangles`,
+`get_overlap`, `get_intersection`) remain.
 """
 
 from collections import namedtuple
@@ -55,6 +58,19 @@ class Rectangle(namedtuple("Rectangle", "x y width height")):
 
     def times(self, x):
         return Rectangle(*(int(round(i * x)) for i in self))
+
+    def draw_on(self, img, color=(0, 0, 255), size=1):
+        """The rectangle's outline drawn on `img` (a gray image becomes
+        BGR); `size` is accepted for the reference's signature."""
+        from .viz import draw_line
+
+        if len(img.shape) == 2:
+            img = np.repeat(img[..., None], 3, -1).astype(np.uint8)
+        p = [(self.x, self.y), (self.x2 - 1, self.y),
+             (self.x2 - 1, self.y2 - 1), (self.x, self.y2 - 1)]
+        for a, b in zip(p, p[1:] + p[:1]):
+            draw_line(img, a, b, color)
+        return img
 
 
 # ---------------------------------------------------------------------------
@@ -116,12 +132,20 @@ def single_region(mask):
 class Cropper:
     DEFAULT_CROP = True
 
-    def __init__(self, crop=DEFAULT_CROP):
+    def __init__(self, crop=DEFAULT_CROP, device="cuda"):
         self.do_crop = crop
+        self.device = torch.device(device)
         self.overlapping_rectangles = []
         self.intersection_rectangles = []
 
     # -- planning ------------------------------------------------------------
+
+    def prepare(self, imgs, masks, corners, sizes):
+        """Plan the crop rects from host warps and their masks."""
+        if self.do_crop:
+            mask = self.estimate_panorama_mask(imgs, masks, corners, sizes,
+                                               device=self.device)
+            self.prepare_from_mask(mask, corners, sizes)
 
     def prepare_from_mask(self, mask, corners, sizes):
         """Plan crop rects from the composited panorama mask (a tensor on
@@ -137,6 +161,14 @@ class Cropper:
             to_local(clipped, outer) for clipped, outer in
             zip(self.overlapping_rectangles, img_rects)]
 
+    @staticmethod
+    def estimate_panorama_mask(imgs, masks, corners, sizes, device="cuda"):
+        """The paste composite's mask (host uint8) on `device`."""
+        from .blender import Blender
+
+        return Blender.create_panorama(imgs, masks, corners, sizes,
+                                       device=device)[1]
+
     def estimate_largest_interior_rectangle(self, mask):
         mask = torch.as_tensor(mask)
         if single_region(mask.cpu().numpy()) is None:
@@ -146,9 +178,35 @@ class Cropper:
 
     # -- application ---------------------------------------------------------
 
+    def crop_images(self, imgs, aspect=1):
+        for idx, img in enumerate(imgs):
+            yield self.crop_img(img, idx, aspect)
+
+    def crop_img(self, img, idx, aspect=1):
+        if not self.do_crop:
+            return img
+        r = self.intersection_rectangles[idx].times(aspect)
+        return img[r.y: r.y2, r.x: r.x2]
+
     def crop_rois(self, corners, sizes, aspect=1):
         if not self.do_crop:
             return corners, sizes
         scaled = [r.times(aspect) for r in self.overlapping_rectangles]
         return (zero_center([r.corner for r in scaled]),
                 [r.size for r in scaled])
+
+    # -- the reference's static aliases ---------------------------------------
+
+    get_zero_center_corners = staticmethod(zero_center)
+
+    @staticmethod
+    def get_rectangles(corners, sizes):
+        return [Rectangle(*c, *s) for c, s in zip(corners, sizes)]
+
+    @staticmethod
+    def get_overlap(rectangle1, rectangle2):
+        return clip_rect(rectangle1, rectangle2)
+
+    @staticmethod
+    def get_intersection(rectangle, overlapping_rectangle):
+        return to_local(overlapping_rectangle, rectangle)

@@ -36,12 +36,39 @@ def read_image(path: str) -> np.ndarray:
     return rgb[:, :, ::-1].copy()
 
 
-def write_image(path: str, img: np.ndarray) -> bool:
+# cv.imwrite's flag codes that the CLI's --output_params documents, and the
+# Pillow save option each one sets
+_WRITE_FLAGS = {
+    1: "quality",           # IMWRITE_JPEG_QUALITY
+    16: "compress_level",   # IMWRITE_PNG_COMPRESSION
+    64: "quality",          # IMWRITE_WEBP_QUALITY
+}
+
+
+def _save_options(params):
+    """Pillow save options from cv.imwrite's flat [flag, value, ...]."""
+    params = list(params or [])
+    if len(params) % 2:
+        raise StitchingError(
+            f"image write parameters come in flag/value pairs: {params}")
+    options = {}
+    for flag, value in zip(params[::2], params[1::2]):
+        if int(flag) not in _WRITE_FLAGS:
+            raise StitchingError(
+                f"unsupported image write parameter {flag} (supported: "
+                "1 JPEG quality, 16 PNG compression, 64 WEBP quality)")
+        options[_WRITE_FLAGS[int(flag)]] = int(value)
+    return options
+
+
+def write_image(path: str, img: np.ndarray, params=None) -> bool:
     """Write a BGR (HxWx3) or gray (HxW) uint8 array to an image file, its
-    format from the file's extension."""
+    format from the file's extension. `params` are cv.imwrite's flag/value
+    pairs: JPEG quality (1), PNG compression (16) and WEBP quality (64)."""
+    options = _save_options(params)
     img = np.ascontiguousarray(img)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
     arr = img[:, :, ::-1] if img.ndim == 3 else img
-    _pil().fromarray(np.ascontiguousarray(arr)).save(path)
+    _pil().fromarray(np.ascontiguousarray(arr)).save(path, **options)
     return True

@@ -14,6 +14,12 @@ the solve is one batched (cells, N, N) linear solve, followed by
 per-image gain-map smoothing. The masked sums run on the device over the
 tile stack; the tiny normal systems and the smoothing run in numpy on the
 host, as in the reference.
+
+The list forms of the step-by-step API (`compute_scalar_gains`,
+`compute_block_gains`) take per-image tensors on one device: the
+reference's per-pair and per-image sums, then the same host solves.
+Their float32 sums run in another order than numpy's, so they agree to
+rounding.
 """
 
 import numpy as np
@@ -45,6 +51,94 @@ def solve_gains(n_imgs, stats, n_channels):
             except np.linalg.LinAlgError:
                 pass
     return gains
+
+
+def _pair_overlap_stats(corner_i, img_i, mask_i, corner_j, img_j, mask_j,
+                        per_channel):
+    """Exact overlap statistics of one image pair: (N, I_i, I_j) with I_*
+    host float32 arrays, per channel (3,) or scalar (1,). img_*: (h, w, C)
+    tensors; mask_*: (h, w) tensors."""
+    xi, yi = corner_i
+    xj, yj = corner_j
+    hi, wi = img_i.shape[:2]
+    hj, wj = img_j.shape[:2]
+    x0, y0 = max(xi, xj), max(yi, yj)
+    x1, y1 = min(xi + wi, xj + wj), min(yi + hi, yj + hj)
+    if x1 <= x0 or y1 <= y0:
+        return 0.0, None, None
+    si = img_i[y0 - yi:y1 - yi, x0 - xi:x1 - xi].to(torch.float32)
+    sj = img_j[y0 - yj:y1 - yj, x0 - xj:x1 - xj].to(torch.float32)
+    both = ((mask_i[y0 - yi:y1 - yi, x0 - xi:x1 - xi] > 0)
+            & (mask_j[y0 - yj:y1 - yj, x0 - xj:x1 - xj] > 0))
+    n = float(both.sum())
+    if n < 1:
+        return 0.0, None, None
+    bf = both.to(torch.float32)
+    if per_channel:
+        I_i = (si * bf[..., None]).sum((0, 1)) / n
+        I_j = (sj * bf[..., None]).sum((0, 1)) / n
+    else:
+        I_i = ((si.mean(-1) * bf).sum() / n)[None]
+        I_j = ((sj.mean(-1) * bf).sum() / n)[None]
+    return n, I_i.cpu().numpy(), I_j.cpu().numpy()
+
+
+def compute_scalar_gains(corners, imgs, masks, per_channel):
+    """One gain per image (or per image and channel) from the overlaps of
+    every pair. imgs/masks: per-image tensors on one device. Returns (N,
+    C') host float64 gains."""
+    n = len(imgs)
+    stats = []
+    for i in range(n):
+        for j in range(i + 1, n):
+            N, I_i, I_j = _pair_overlap_stats(
+                corners[i], imgs[i], masks[i],
+                corners[j], imgs[j], masks[j], per_channel)
+            if N > 0:
+                stats.append((i, j, N, I_i, I_j))
+    return solve_gains(n, stats, 3 if per_channel else 1)
+
+
+def compute_block_gains(corners, imgs, masks, block_size, per_channel):
+    """Per-image gain maps over canvas cells of `block_size` px.
+
+    imgs/masks: per-image tensors on one device. Returns (cell_origin,
+    block_size, gains (N, ncy, ncx, C), present): each image's masked
+    sums and counts per cell run on the device, the per-cell solves on
+    the host."""
+    n = len(imgs)
+    x0 = min(c[0] for c in corners)
+    y0 = min(c[1] for c in corners)
+    x1 = max(c[0] + im.shape[1] for c, im in zip(corners, imgs))
+    y1 = max(c[1] + im.shape[0] for c, im in zip(corners, imgs))
+    bs = int(block_size)
+    ncx = -(-(x1 - x0) // bs)
+    ncy = -(-(y1 - y0) // bs)
+    C = 3 if per_channel else 1
+    sums = np.zeros((n, ncy, ncx, C))
+    cnts = np.zeros((n, ncy, ncx))
+    for i, (corner, img, mask) in enumerate(zip(corners, imgs, masks)):
+        h, w = img.shape[:2]
+        gx0, gy0 = corner[0] - x0, corner[1] - y0
+        px, py = gx0 % bs, gy0 % bs
+        ph = -(-(h + py) // bs) * bs
+        pw = -(-(w + px) // bs) * bs
+        arr = torch.zeros((ph, pw, 3), dtype=torch.float32,
+                          device=img.device)
+        mar = torch.zeros((ph, pw), dtype=torch.float32, device=img.device)
+        arr[py:py + h, px:px + w] = img.to(torch.float32)
+        mar[py:py + h, px:px + w] = (mask > 0).to(torch.float32)
+        by, bx = ph // bs, pw // bs
+        a4 = arr.reshape(by, bs, bx, bs, 3)
+        m4 = mar.reshape(by, bs, bx, bs)
+        if per_channel:
+            s_ = (a4 * m4[..., None]).sum((1, 3))
+        else:
+            s_ = (a4.mean(-1) * m4).sum((1, 3))[..., None]
+        cy0, cx0 = gy0 // bs, gx0 // bs
+        sums[i, cy0:cy0 + by, cx0:cx0 + bx] = s_.cpu().numpy()
+        cnts[i, cy0:cy0 + by, cx0:cx0 + bx] = m4.sum((1, 3)).cpu().numpy()
+    return _solve_block_gains(sums, cnts, (x0, y0), bs, C, n, ncy, ncx)
 
 
 def _pair_stats(data, masks, gains, pairs, bh, bw, per_channel):

@@ -19,6 +19,14 @@ GraphCutSeamFinder COLOR / COLOR_GRAD and VoronoiSeamFinder:
 The DP runs its forward min scan as a loop over rows, each row one set of
 tensor ops over pairs x columns, and its backtrack as one gather a row, all
 on the card: the seam never visits the host.
+
+The list forms of the step-by-step API (`SeamFinder.find`) are ported
+too: `dp_pairwise_seams` and `gc_pairwise_seams` cut pair by pair (i < j),
+each pair from the masks as the pairs before it left them (the native
+PairwiseSeamFinder's order, unlike the batched stacks), each overlap
+bucketed to 64 with the padding invalid; `voronoi_seams` is the stack's
+ownership rule on the list's masks. They run on the device they are
+given and return host uint8 {0, 255} masks.
 """
 
 import numpy as np
@@ -350,3 +358,142 @@ def voronoi_seams_stack(masks, corners, sizes):
         o = owner[y:y + TH, x:x + TW]
         keep.append((masks[i] > 0) & (~c | (o == i)))
     return torch.cat([torch.where(torch.stack(keep), 255.0, 0.0), masks[n:]])
+
+
+# ---------------------------------------------------------------------------
+# List forms: host images and masks in, pair by pair on a device
+# ---------------------------------------------------------------------------
+
+def _device_lists(imgs, masks, device):
+    """float32 (h, w, C) images and (h, w) uint8 masks on `device`."""
+    return ([torch.as_tensor(np.asarray(im, np.float32), device=device)
+             for im in imgs],
+            [torch.as_tensor(np.asarray(m), device=device).clone()
+             for m in masks])
+
+
+def _to_host_masks(masks):
+    return [((m > 0).to(torch.uint8) * 255).cpu().numpy() for m in masks]
+
+
+def _overlap_views(imgs, corners, masks, i, j):
+    """Aligned overlap slices of a pair; None if the rects do not meet."""
+    ci, cj = corners[i], corners[j]
+    hi, wi = masks[i].shape
+    hj, wj = masks[j].shape
+    x0, y0 = max(ci[0], cj[0]), max(ci[1], cj[1])
+    x1 = min(ci[0] + wi, cj[0] + wj)
+    y1 = min(ci[1] + hi, cj[1] + hj)
+    if x1 <= x0 or y1 <= y0:
+        return None
+    si = np.s_[y0 - ci[1]:y1 - ci[1], x0 - ci[0]:x1 - ci[0]]
+    sj = np.s_[y0 - cj[1]:y1 - cj[1], x0 - cj[0]:x1 - cj[0]]
+    return (si, sj, masks[i][si] > 0, masks[j][sj] > 0,
+            imgs[i][si], imgs[j][sj])
+
+
+def _cut(masks, i, j, si, sj, mi, mj, keep_i, keep_j):
+    """Zero each image's pixels of the overlap that its keep map drops."""
+    masks[i][si] = torch.where(mi & keep_i, masks[i][si], 0)
+    masks[j][sj] = torch.where(mj & keep_j, masks[j][sj], 0)
+
+
+def _dp_pair(imgs, corners, masks, i, j, use_grad):
+    """One pair's DP seam, cut into `masks` in place."""
+    ov = _overlap_views(imgs, corners, masks, i, j)
+    if ov is None:
+        return
+    si, sj, mi, mj, ai, aj = ov
+    both = mi & mj
+    if int(both.sum()) < 2:
+        return
+    dev = both.device
+    diff = _sum_channels((ai - aj).abs())
+    if use_grad:
+        diff = diff + (_grad_mag(ai) - _grad_mag(aj)).abs()
+    oh, ow = diff.shape
+    vertical = oh >= ow     # the seam runs along the longer side
+    cost = diff if vertical else diff.T
+    valid = both if vertical else both.T
+    h, w = cost.shape
+    # the bucket: padded rows free, padded columns penalised
+    bh, bw = _round64(h), _round64(w)
+    cost_b = torch.zeros((bh, bw), dtype=torch.float32, device=dev)
+    cost_b[:h, :w] = torch.where(valid, cost, cost + _INVALID_PENALTY)
+    cost_b[:h, w:] = _INVALID_PENALTY
+    cols = _dp_seam_kernel(cost_b[None])[0, :h].clamp(0, w - 1)
+
+    # the side of the seam holding each image's centroid (float64, as the
+    # reference's numpy divides integer sums)
+    col_idx = torch.arange(w, device=dev)[None, :]
+    left_side = col_idx < cols[:, None]
+    seam_line = col_idx == cols[:, None]
+    mi_t = mi if vertical else mi.T
+    mj_t = mj if vertical else mj.T
+
+    def centroid(m):
+        return (float((m.to(torch.int64) * col_idx).sum())
+                / max(int(m.sum()), 1))
+
+    own_i = ((left_side | seam_line) if centroid(mi_t) <= centroid(mj_t)
+             else ~left_side)
+    keep_i = ~valid | own_i
+    keep_j = ~valid | ~own_i | seam_line
+    if not vertical:
+        keep_i, keep_j = keep_i.T, keep_j.T
+    _cut(masks, i, j, si, sj, mi, mj, keep_i, keep_j)
+
+
+def dp_pairwise_seams(imgs, corners, masks, use_grad, device="cuda"):
+    """Pairwise DP seams, the masks updated pair by pair (i < j)."""
+    imgs, masks = _device_lists(imgs, masks, device)
+    for i in range(len(imgs)):
+        for j in range(i + 1, len(imgs)):
+            _dp_pair(imgs, corners, masks, i, j, use_grad)
+    return _to_host_masks(masks)
+
+
+def gc_pairwise_seams(imgs, corners, masks, use_grad, device="cuda"):
+    """Pairwise graph-cut seams (`ops/graphcut.seam_cut_pair`), the masks
+    updated pair by pair (i < j) like the native GraphCutSeamFinder."""
+    imgs, masks = _device_lists(imgs, masks, device)
+    n = len(imgs)
+    for i in range(n):
+        for j in range(i + 1, n):
+            ov = _overlap_views(imgs, corners, masks, i, j)
+            if ov is None:
+                continue
+            si, sj, mi, mj, ai, aj = ov
+            both = mi & mj
+            if int(both.sum()) < 2:
+                continue
+            # the overlap bucketed to 64; the padding is invalid space
+            h, w = both.shape
+            pad = (0, _round64(w) - w, 0, _round64(h) - h)
+
+            def padded(t):
+                if t.dim() == 3:
+                    return F.pad(t, (0, 0) + pad)[None]
+                return F.pad(t, pad)[None]
+
+            own_i = seam_cut_pair(
+                padded(ai), padded(aj), padded(both), padded(mi & ~mj),
+                padded(mj & ~mi), use_grad)[0, :h, :w]
+            _cut(masks, i, j, si, sj, mi, mj, ~both | own_i, ~both | ~own_i)
+    return _to_host_masks(masks)
+
+
+def voronoi_seams(corners, masks, device="cuda"):
+    """Voronoi ownership of the list's masks: each contested pixel goes to
+    the image whose unique territory is nearest in L1, ties to the lower
+    index (`voronoi_seams_stack` on the masks padded to one shape)."""
+    sizes = np.asarray([(m.shape[1], m.shape[0]) for m in masks])
+    th, tw = int(sizes[:, 1].max()), int(sizes[:, 0].max())
+    stack = torch.zeros((len(masks), th, tw), dtype=torch.float32,
+                        device=device)
+    for k, m in enumerate(masks):
+        stack[k, :m.shape[0], :m.shape[1]] = torch.as_tensor(
+            np.asarray(m) > 0, device=device) * 255.0
+    out = voronoi_seams_stack(stack, np.asarray(corners), sizes)
+    return [out[k, :h, :w].to(torch.uint8).cpu().numpy()
+            for k, (w, h) in enumerate(sizes)]

@@ -16,6 +16,13 @@ instance feeds the warp's backward map on the card (`compose.py`), the
 numpy instance plans ROIs on the host. The formulas, their order of
 operations and their guards at singular points (`abs(z) < 1e-12`,
 `abs(sin u) < 1e-7`, the clips near +-1) are the reference's.
+
+`warp_image` warps one host image on a given device for the step-by-step
+API (`Warper.warp_image`): the backward map and a plain-PyTorch gather,
+bilinear with a reflect border for images and nearest with a constant
+border for masks (the reference's `_warp_kernel`, not the sampler
+kernel's edge-clamp contract), its products and lerps rounded as the
+reference's compiled code fuses them (`ops/fma.py`).
 """
 
 import math
@@ -23,6 +30,9 @@ import types
 
 import numpy as np
 import torch
+
+from .blend import _reflect_idx
+from .fma import fma
 
 PI = math.pi
 
@@ -281,3 +291,103 @@ def warp_roi(size_wh, K, R, scale, warper_type):
     tl = (int(u_min), int(v_min))
     br = (int(u_max), int(v_max))
     return tl, (br[0] - tl[0] + 1, br[1] - tl[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# Per-image warp: backward map + bilinear / nearest sampling
+# ---------------------------------------------------------------------------
+
+def _warp_kernel(img, k_rinv, tl, inv_scale, dst_h, dst_w, warper_type,
+                 interp, border):
+    """Backward map over the (dst_h, dst_w) grid and the sample of `img`.
+
+    img: (H, W, C) float32 tensor; k_rinv: (3, 3) float32 tensor, K R^-1
+    (K A for "affine"); tl: the dst top-left (x, y); inv_scale: float32.
+    Returns (dst_h, dst_w, C) float32 on img's device. Linear sampling
+    reads four taps at reflected (border "reflect") or clamped indices;
+    nearest reads the tap at the rounded coordinate (half to even, as
+    jnp.round). Outside the projection's valid side the value is 0, and
+    with a "constant" border so is every sample off the source.
+    """
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    cols = torch.arange(dst_w, dtype=torch.float32, device=dev)[None, :]
+    rows = torch.arange(dst_h, dtype=torch.float32, device=dev)[:, None]
+    u = ((float(np.float32(tl[0])) + cols) * inv_scale).expand(dst_h, -1)
+    v = ((float(np.float32(tl[1])) + rows) * inv_scale).expand(-1, dst_w)
+    if warper_type == "affine":
+        x, y, z = u, v, torch.ones_like(u)
+    else:
+        x, y, z = PROJECTORS[warper_type][1](u, v)
+    # the reference's compiled map fuses k0 x + k1 y + k2 z as
+    # fma(k2, z, fma(k0, x, k1 y)), as in `compose._bwd_coords`
+    q0, q1, q2 = (fma(k_rinv[r, 2], z, fma(k_rinv[r, 0], x, k_rinv[r, 1] * y))
+                  for r in range(3))
+    valid = q2 > 0
+    q2s = torch.where(q2.abs() < 1e-12, 1e-12, q2)
+    sx = q0 / q2s
+    sy = q1 / q2s
+
+    if interp == "nearest":
+        xi = torch.round(sx).to(torch.int64)
+        yi = torch.round(sy).to(torch.int64)
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h) & valid
+        out = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        if border == "constant":
+            out = torch.where(inb[..., None], out, 0.0)
+        return out
+
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = (sx - x0)[..., None]
+    fy = (sy - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    if border == "reflect":
+        xa, xb = _reflect_idx(x0i, w), _reflect_idx(x0i + 1, w)
+        ya, yb = _reflect_idx(y0i, h), _reflect_idx(y0i + 1, h)
+    else:
+        xa, xb = x0i.clamp(0, w - 1), (x0i + 1).clamp(0, w - 1)
+        ya, yb = y0i.clamp(0, h - 1), (y0i + 1).clamp(0, h - 1)
+    # and each lerp a (1 - f) + b f as fma(a, 1 - f, b f)
+    gx, gy = (1 - fx).expand(-1, -1, img.shape[2]), \
+        (1 - fy).expand(-1, -1, img.shape[2])
+    top = fma(img[ya, xa], gx, img[ya, xb] * fx)
+    bot = fma(img[yb, xa], gx, img[yb, xb] * fx)
+    out = fma(top, gy, bot * fy)
+    if border == "constant":
+        keep = ((sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+                & valid)
+    else:
+        keep = valid
+    return torch.where(keep[..., None], out, 0.0)
+
+
+def warp_image(img, K, R, scale, warper_type, interp="linear",
+               border="reflect", device="cuda"):
+    """Warp one source image onto the surface on `device`. Returns
+    (corner_xy, warped): the dst ROI's top-left in surface pixels and the
+    warped host array at the ROI's exact size.
+
+    img: numpy uint8 or float (H, W) or (H, W, C). An integer image comes
+    back as uint8 (rounded half to even and saturated), a float one as
+    float32.
+    """
+    img = np.asarray(img)
+    size_wh = (img.shape[1], img.shape[0])
+    tl, (dw, dh) = warp_roi(size_wh, K, R, scale, warper_type)
+    K64 = np.asarray(K, np.float64)
+    R64 = np.asarray(R, np.float64)
+    k_rinv = K64 @ R64 if warper_type == "affine" \
+        else K64 @ np.linalg.inv(R64)
+    src = torch.as_tensor(np.ascontiguousarray(img), device=device).to(
+        torch.float32)
+    out = _warp_kernel(
+        src if img.ndim == 3 else src[..., None],
+        torch.as_tensor(k_rinv.astype(np.float32), device=device), tl,
+        float(np.float32(1.0 / scale)), dh, dw, warper_type, interp, border)
+    if img.ndim == 2:
+        out = out[..., 0]
+    if np.issubdtype(img.dtype, np.integer):
+        out = torch.round(out).clamp(0, 255).to(torch.uint8)
+    return tl, out.cpu().numpy()

@@ -16,10 +16,12 @@ blenders, and the timelapse frames. `AffineStitcher()` stitches scans:
 similarity matching, the affine estimate and adjuster, the affine warp, no
 wave correction and no exposure compensation. `SLICE` and `SLICE2` are two
 smaller configurations that switch stages off. `stitch` returns the
-panorama on the host; `stitch_device` keeps it on the device. Both set
-TF32 off for the call only (`pipeline.no_tf32`). Every detector runs:
-ORB, SIFT (float descriptors, matched by the float 2-NN kernel), BRISK
-and AKAZE (512-bit rows).
+panorama on the host; `stitch_device` keeps it on the device;
+`stitch_verbose` runs the step-by-step component API and writes every
+stage's artifacts. Each sets TF32 off for the call only
+(`pipeline.no_tf32`). Every component runs on the stitcher's device.
+Every detector runs: ORB, SIFT (float descriptors, matched by the float
+2-NN kernel), BRISK and AKAZE (512-bit rows).
 """
 
 import warnings
@@ -115,12 +117,14 @@ class Stitcher:
             s["adjuster"], s["refinement_mask"], s["confidence_threshold"],
             device=self.device)
         self.wave_corrector = WaveCorrector(s["wave_correct_kind"])
-        self.warper = Warper(s["warper_type"])
-        self.cropper = Cropper(s["crop"])
+        self.warper = Warper(s["warper_type"], device=self.device)
+        self.cropper = Cropper(s["crop"], device=self.device)
         self.compensator = ExposureErrorCompensator(
-            s["compensator"], s["nr_feeds"], s["block_size"])
-        self.seam_finder = SeamFinder(s["finder"])
-        self.blender = Blender(s["blender_type"], s["blend_strength"])
+            s["compensator"], s["nr_feeds"], s["block_size"],
+            device=self.device)
+        self.seam_finder = SeamFinder(s["finder"], device=self.device)
+        self.blender = Blender(s["blender_type"], s["blend_strength"],
+                               device=self.device)
         self.timelapser = Timelapser(s["timelapse"], s["timelapse_prefix"])
 
     def stitch(self, images, feature_masks=[]):
@@ -137,6 +141,16 @@ class Stitcher:
         result on demand with `compose.fetch_image`."""
         with no_tf32():
             return engine.run_device(self, images, feature_masks, prestaged)
+
+    def stitch_verbose(self, images, feature_masks=[], verbose_dir=None):
+        """Stitch step by step through the components' per-image methods,
+        writing the numbered artifacts of every stage into `verbose_dir`
+        (`verbose.py`); returns the panorama."""
+        from .verbose import verbose_stitching
+
+        with no_tf32():
+            return verbose_stitching(self, images, feature_masks,
+                                     verbose_dir)
 
     def validate_kwargs(self, kwargs):
         for arg in kwargs:

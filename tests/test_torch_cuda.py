@@ -1017,3 +1017,131 @@ def test_stream_composite_cuda_equals_blend_stack(cuda_device, kind,
     assert isinstance(got, np.ndarray)
     assert np.array_equal(got, pano.cpu().numpy())
     assert np.array_equal(got_mask, mask.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: the step-by-step component API on the card against the same
+# calls on the CPU (`test_torch_*_api.py` hold the CPU runs against the
+# JAX package)
+# ---------------------------------------------------------------------------
+
+def _views(n=3, size=(192, 144), focal=180.0, seed=3):
+    """Rendered textures of three yawed views and their cameras."""
+    from stitching_tpu_torch.types import CameraParams
+
+    rng = np.random.RandomState(seed)
+    w, h = size
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    imgs, cams = [], []
+    for i, a in enumerate((-0.3, 0.0, 0.3)[:n]):
+        img = np.stack([127 + 90 * np.sin((xx + 60 * i) / (6 + c)
+                                          + yy / 9.0) for c in range(3)], -1)
+        img = img * (0.8 + 0.2 * i) + rng.rand(h, w, 3) * 25
+        imgs.append(np.clip(img, 0, 255).astype(np.uint8))
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]], np.float32)
+        cams.append(CameraParams(focal, 1.0, w / 2, h / 2, R))
+    return imgs, cams
+
+
+def _warped(device, size=(192, 144), focal=180.0, surface="spherical"):
+    from stitching_tpu_torch.warper import Warper
+
+    imgs, cams = _views(size=size, focal=focal)
+    w = Warper(surface, device=device)
+    w.set_scale(cams)
+    sizes = [size] * len(imgs)
+    corners, _ = w.warp_rois(sizes, cams)
+    return (list(w.warp_images(imgs, cams)),
+            list(w.create_and_warp_masks(sizes, cams)), corners)
+
+
+def _near(a, b, share=0.999):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", ["spherical", "cylindrical", "plane",
+                                     "fisheye"])
+def test_warper_per_image_cuda_close_to_cpu(cuda_device, surface):
+    """`warp_image` and `create_and_warp_mask` on the card against the
+    CPU: masks equal, uint8 images within 1 LSB at 99.99% equal (the
+    card's transcendentals differ from the CPU's in the last bit)."""
+    gi, gm, gc = _warped(cuda_device, surface=surface)
+    ci, cm, cc = _warped("cpu", surface=surface)
+    assert gc == cc
+    for a, b in zip(gm, cm):
+        assert np.array_equal(a, b)
+    for a, b in zip(gi, ci):
+        _near(a, b, 0.9999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["no", "feather", "multiband"])
+def test_blender_backends_cuda_close_to_cpu(cuda_device, kind):
+    """Each backend fed the same warps on both devices: the masks equal,
+    the panorama within 1 LSB at 99.99% equal."""
+    from stitching_tpu_torch.blender import Blender
+
+    imgs, masks, corners = _warped("cpu")
+    sizes = [(m.shape[1], m.shape[0]) for m in masks]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        b = Blender(kind, device=dev)
+        b.prepare(corners, sizes)
+        for img, mask, corner in zip(imgs, masks, corners):
+            b.feed(img, mask, corner)
+        out.append(b.blend())
+        assert b.blender.device.type == torch.device(dev).type
+    assert np.array_equal(out[0][1], out[1][1])
+    _near(out[0][0], out[1][0], 0.9999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finder", ["dp_color", "dp_colorgrad", "voronoi",
+                                    "gc_color"])
+def test_seam_find_cuda_equals_cpu(cuda_device, finder):
+    """`SeamFinder.find` on the card equals the CPU's masks, and so does
+    `resize` against a FINAL mask."""
+    from stitching_tpu_torch.seam_finder import SeamFinder
+
+    imgs, masks, corners = _warped("cpu")
+    got = SeamFinder(finder, device=cuda_device).find(imgs, corners, masks)
+    want = SeamFinder(finder, device="cpu").find(imgs, corners, masks)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    _, fmasks, _ = _warped("cpu", size=(384, 288), focal=360.0)
+    for seam, mask in zip(want, fmasks):
+        assert np.array_equal(SeamFinder.resize(seam, mask, cuda_device),
+                              SeamFinder.resize(seam, mask, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,nr_feeds", [("gain_blocks", 1),
+                                           ("channel_blocks", 1),
+                                           ("gain", 2), ("channel", 1)])
+def test_compensator_apply_cuda_close_to_cpu(cuda_device, kind, nr_feeds):
+    """`feed` on LOW warps and `apply` to FINAL warps on both devices: the
+    gains and gain maps to 1e-4, the compensated warps within 1 LSB at
+    99.9% equal."""
+    from stitching_tpu_torch.exposure_error_compensator import (
+        ExposureErrorCompensator)
+
+    limgs, lmasks, lcorners = _warped("cpu")
+    fimgs, fmasks, fcorners = _warped("cpu", size=(384, 288), focal=360.0)
+    comps = []
+    for dev in (cuda_device, "cpu"):
+        comp = ExposureErrorCompensator(kind, nr_feeds, device=dev)
+        comp.feed(lcorners, limgs, lmasks)
+        comps.append(comp)
+    if kind in ("gain", "channel"):
+        np.testing.assert_allclose(comps[0]._gains, comps[1]._gains,
+                                   atol=1e-4)
+    else:
+        for a, b in zip(comps[0]._block_state[2], comps[1]._block_state[2]):
+            np.testing.assert_allclose(a, b, atol=1e-4)
+    for idx, (img, mask, corner) in enumerate(zip(fimgs, fmasks, fcorners)):
+        _near(comps[0].apply(idx, corner, img, mask),
+              comps[1].apply(idx, corner, img, mask))

@@ -303,7 +303,10 @@ def test_package_imports_neither_jax_nor_reference():
         "             ('jax', 'jaxlib', 'stitching_tpu', 'cv2'))\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('stitching_tpu_torch.')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "need = ['stitching_tpu_torch.' + m for m in\n"
+        "        ('cli.stitch', 'verbose', 'registration')]\n"
+        "assert all(m in sys.modules for m in need), need\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=stitching_tpu_torch.__path__[0] + "/..")
