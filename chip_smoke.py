@@ -43,7 +43,19 @@
      its wall beside a `stitch()` wall and a fenced stage table,
    - `cli.stitch.main()` in this process on the views written as PNG, its
      panorama equal to `Stitcher().stitch` on the same files;
-4. the slice-8 phases: the CLI in a process of its own on 3 views, with
+   - `Stitcher(mesh=make_mesh())`, the mesh of one NCCL rank in this
+     process (the sync branch: one batched LOW and one batched FINAL
+     warp), with its peak memory and a `Stitcher()` wall beside it;
+4. the mesh phases: the one-rank mesh's panorama against the non-mesh
+   composite at its cameras, and `STRIPS["x"]` split over it against the
+   non-mesh strips (equal); then the group is destroyed and two ranks,
+   each a process of its own (`chip_smoke.py --mesh-rank`), share the
+   card over gloo: each stitches the views (its images, pairs, launches
+   and wall printed, the walls no scaling numbers), the two panoramas
+   equal bit for bit, and at the one-rank run's cameras within 1 LSB of
+   its panorama, and each holds the strips split over both ranks (tiles
+   sent point to point) against the non-mesh strips; then
+   the slice-8 phases: the CLI in a process of its own on 3 views, with
    and without -v; `stitch_verbose` on 3 views against the CPU's run with
    the card's registration; the verbose run's cameras saved and loaded;
    then the slice-6 phases: the streamed FINAL pass against the batched one on
@@ -79,6 +91,7 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 import copy
 import ctypes
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -106,6 +119,15 @@ N_VIEWS = 8
 # over all pairs, one batched LOW warp and one FINAL warp per kept view
 STITCH_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0,
                    "bilinear_sample": 1 + N_VIEWS}
+# kernel launches of one stitch under a mesh, each rank: the sync branch
+# (one batched LOW and one batched FINAL warp of its images) and one 2-NN
+# call over its pairs
+MESH_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2}
+# the two-rank phase: processes of their own sharing the one card over
+# gloo, each with a time limit
+MESH_RANKS = 2
+MESH_RANK_DEVICE = "cuda:0"
+MESH_RANK_TIMEOUT = 600
 # scripts/giant_bench.py's layout: (rows, cols) of (h, w) tiles at (y, x)
 # steps, a 14480 x 7556 canvas (109.4 MP), blended under the port's
 # default budget (its accumulators pass it)
@@ -1065,6 +1087,239 @@ def timelapse_phase(imgs):
                       "cameras)", got, want, 0.999)
 
 
+def one_rank_mesh():
+    """The mesh of one NCCL rank in this process (a world of one)."""
+    from stitching_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    if mesh.backend != "nccl" or mesh.size != 1:
+        raise AssertionError(f"one-rank mesh: {mesh.backend}, "
+                             f"{mesh.size} ranks")
+    return mesh
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_strips(mesh, what):
+    """`STRIPS["x"]`'s tiles split over the mesh and blended under its
+    budget: the strips spread over the ranks (each receiving the tiles
+    its strips read) equal the non-mesh strips of the whole stack, value
+    for value."""
+    import dataclasses
+
+    from stitching_tpu_torch import compose
+    from stitching_tpu_torch.parallel.mesh import shard_leading
+
+    cfg = STRIPS["x"]
+    whole = tile_layout(cfg["grid"], cfg["tile"], cfg["step"], mesh.device,
+                        1)
+    split = dataclasses.replace(whole, data=shard_leading(whole.data, mesh),
+                                masks=shard_leading(whole.masks, mesh),
+                                mesh=mesh)
+    routes = []
+    strips_mesh = compose._blend_strips_mesh
+    compose._blend_strips_mesh = lambda *a: routes.append(a[-1].size) \
+        or strips_mesh(*a)
+    try:
+        _sync(mesh.device)
+        t0 = time.time()
+        got, got_mask = compose.blend_stack(split, None, "multiband", 5,
+                                            budget=cfg["budget"])
+        _sync(mesh.device)
+        wall = time.time() - t0
+    finally:
+        compose._blend_strips_mesh = strips_mesh
+    want, want_mask = compose.blend_stack(whole, None, "multiband", 5,
+                                          budget=cfg["budget"])
+    equal = bool(torch.equal(got, want) and torch.equal(got_mask, want_mask))
+    print(f"{what}: X strips of {whole.data.shape[0]} tiles over "
+          f"{mesh.size} rank(s), panorama {tuple(got.shape)}, wall_s="
+          f"{wall:.4f}; equal to the non-mesh strips: {equal}", flush=True)
+    if routes != [mesh.size] or not equal:
+        raise AssertionError(f"{what}: the strips over the mesh ran "
+                             f"{routes} or differ from the non-mesh strips")
+
+
+def mesh_check(imgs, Rs_true, mesh, pano):
+    """The one-rank mesh's cameras against the rendered ground truth (its
+    MEDIUM stack is the host resize, which no other phase runs), its
+    panorama against the non-mesh composite at the mesh run's cameras
+    (shape, crop rects, 1 LSB), and its strips.
+    The non-mesh run is the batched branch (a prestaged stack), whose LOW
+    stack is the originals resized on the card as under a mesh (the
+    uploader's branch resizes LOW on the host). Returns the mesh run's
+    cameras."""
+    from stitching_tpu_torch import Stitcher, engine, pipeline
+
+    st = Stitcher(mesh=mesh)
+    reg = engine.register(st, imgs)
+    cams = [c.copy() for c in reg.cameras]
+    check_cameras("mesh", cams, Rs_true, 0.02)
+    plan = engine.plan_composition(st, reg)
+    rects = [tuple(int(v) for v in r) for r in plan.crop_rects]
+    if not np.array_equal(engine.composite(st, reg, plan), pano):
+        raise AssertionError("mesh: two runs gave different panoramas")
+    ref = Stitcher()
+    want, want_rects = composite_reg(ref, engine.register(
+        ref, imgs, prestaged=pipeline.stack_images(imgs, mesh.device)), cams)
+    if want_rects != rects:
+        raise AssertionError(f"mesh: crop rects {rects} against the "
+                             f"non-mesh {want_rects}")
+    lsb_check("mesh (one NCCL rank) against the non-mesh composite at its "
+              "cameras", pano, want, 0.999)
+    mesh_stages(st, imgs)
+    mesh_strips(mesh, "mesh (one NCCL rank)")
+    return cams
+
+
+def mesh_stages(st, imgs):
+    """One more mesh stitch with no kernel inputs held by the script: its
+    peak memory, then its stages under the port's profiler with fences."""
+    from stitching_tpu_torch import profiling
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    st.stitch(imgs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profiling.enable()
+    profiling.enable_fence()
+    profiling.reset()
+    try:
+        st.stitch(imgs)
+        report = profiling.get_report()
+    finally:
+        profiling.enable(False)
+        profiling.enable_fence(False)
+        profiling.reset()
+    print(f"mesh (one NCCL rank): wall_s={wall:.4f} peak_gb={peak:.3f} "
+          "(no kernel inputs kept); fenced stages: " + " ".join(
+              f"{k}={v['total_s']:.4f}" for k, v in sorted(
+                  report.items(), key=lambda kv: -kv[1]["total_s"])),
+          flush=True)
+
+
+def mesh_rank_main(rank, tmp, device):
+    """One rank of the two-rank phase, in a process of its own: joins the
+    gloo group through a FileStore in `tmp`, stitches the views written
+    there, prints what it took, stitches again at the one-rank run's
+    cameras, runs the strips over both ranks and writes its results."""
+    import torch.distributed as dist
+
+    from stitching_tpu_torch import Stitcher, engine, pipeline
+    from stitching_tpu_torch.ops.kernels.bilinear_sample import (
+        bilinear_sample)
+    from stitching_tpu_torch.ops.kernels.two_nn import two_nn_pairs
+    from stitching_tpu_torch.parallel.mesh import make_mesh
+    from stitching_tpu_torch.types import CameraParams
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), MESH_RANKS), rank=rank,
+        world_size=MESH_RANKS)
+    try:
+        mesh = make_mesh(device=device)
+        data = np.load(os.path.join(tmp, "in.npz"))
+        imgs = list(data["imgs"])
+        n = len(imgs)
+        st = Stitcher(mesh=mesh)
+        st.stitch(imgs)
+        _sync(mesh.device)
+        two_nn_pairs.launches = bilinear_sample.launches = 0
+        t0 = time.time()
+        pano = st.stitch(imgs)
+        _sync(mesh.device)
+        wall = time.time() - t0
+        counts = {"two_nn_pairs": two_nn_pairs.launches,
+                  "bilinear_sample": bilinear_sample.launches}
+        lo, hi = mesh.block(pipeline.pad_batch(n, mesh))
+        n_pairs = len(pipeline.make_pairs(n))
+        per = -(-n_pairs // mesh.size)
+        took = max(0, min(per, n_pairs - rank * per))
+        print(f"mesh rank {rank} of {mesh.size} ({mesh.backend}, "
+              f"{mesh.device}): images {list(range(lo, min(hi, n)))} and "
+              f"{hi - min(hi, n)} padded slot(s), pairs {took} of "
+              f"{n_pairs}, launches {counts}, wall_s={wall:.4f} (ranks "
+              f"sharing one card: not a scaling number)", flush=True)
+        if mesh.device.type == "cuda" and counts != {
+                k: MESH_LAUNCHES[k] for k in counts}:
+            raise AssertionError(f"mesh rank {rank}: launches {counts}")
+        reg = engine.register(st, imgs)
+        own = [c.copy() for c in reg.cameras]
+        reg.cameras = [CameraParams(float(f), float(a), float(x), float(y),
+                                    R) for f, a, x, y, R in zip(
+            data["focal"], data["aspect"], data["ppx"], data["ppy"],
+            data["R"])]
+        st.warper.set_scale(reg.cameras)
+        reg.scale = st.warper.scale
+        pano_at = engine.composite(st, reg, engine.plan_composition(st, reg))
+        mesh_strips(mesh, f"mesh rank {rank}")
+        np.savez(os.path.join(tmp, f"out{rank}.npz"), pano=pano,
+                 pano_at=pano_at, focal=[c.focal for c in own],
+                 R=np.stack([c.R for c in own]), wall=wall)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_rank_phase(imgs, cams, pano):
+    """Two ranks on the one card, each a process of its own over gloo:
+    their panoramas equal bit for bit, their cameras within 1e-4 of the
+    one-rank run's, and at the one-rank run's cameras their panorama
+    within 1 LSB of its panorama."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    procs = []
+    try:
+        np.savez(os.path.join(tmp, "in.npz"), imgs=np.stack(imgs),
+                 focal=[c.focal for c in cams],
+                 aspect=[c.aspect for c in cams],
+                 ppx=[c.ppx for c in cams], ppy=[c.ppy for c in cams],
+                 R=np.stack([c.R for c in cams]))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), tmp, MESH_RANK_DEVICE], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(MESH_RANKS)]
+        deadline = time.time() + MESH_RANK_TIMEOUT
+        outs = [p.communicate(timeout=max(deadline - time.time(), 1))
+                for p in procs]
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            print(out, end="", flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"mesh rank {r} failed: {err[-3000:]}")
+        res = [np.load(os.path.join(tmp, f"out{r}.npz"))
+               for r in range(MESH_RANKS)]
+        for k in ("pano", "pano_at", "focal", "R"):
+            if not all(np.array_equal(x[k], res[0][k]) for x in res):
+                raise AssertionError(f"two ranks: their {k} differ")
+        focal = np.asarray([c.focal for c in cams])
+        f_err = float(np.abs(res[0]["focal"] / focal - 1).max())
+        r_err = float(np.abs(res[0]["R"] - np.stack([c.R for c in cams]))
+                      .max())
+        own = res[0]["pano"]
+        print(f"two gloo ranks on one card: panoramas equal bit for bit, "
+              f"{own.shape} (one rank: {pano.shape}); cameras against the "
+              f"one-rank run's: focal {f_err:.2e} relative, R {r_err:.2e}; "
+              f"walls {[round(float(x['wall']), 4) for x in res]} s (not "
+              f"a scaling number)", flush=True)
+        if f_err > 1e-4 or r_err > 1e-4:
+            raise AssertionError("two ranks: cameras beyond 1e-4 of the "
+                                 "one-rank run's")
+        lsb_check("two gloo ranks at the one-rank cameras against the "
+                  "one-rank panorama", res[0]["pano_at"], pano, 0.999)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def pattern_digest():
     """sha256 of the detectors' static tables (BRISK's pattern and pair
     tables, AKAZE's cell pairs), so that runs on two hosts can be seen to
@@ -1764,6 +2019,23 @@ def main():
         raise AssertionError("cli: the written panorama differs from "
                              "Stitcher().stitch on the same files")
 
+    # ---- path 11: the mesh, one NCCL rank in this process -------------
+    mesh = one_rank_mesh()
+    st_m = Stitcher(mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    pano_m, wall_m, (nn_m, _, bs_m) = drive(
+        "mesh", lambda: st_m.stitch(imgs), MESH_LAUNCHES)
+    peak_m = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    st3.stitch(imgs)
+    torch.cuda.synchronize()
+    wall_d = time.time() - t0
+    mp_m = pano_m.shape[0] * pano_m.shape[1] / 1e6
+    print(f"mesh stitch (one NCCL rank; {card}): wall_s={wall_m:.4f} "
+          f"pano={pano_m.shape} mp={mp_m:.3f} mp_per_s={mp_m / wall_m:.3f} "
+          f"peak_gb={peak_m:.3f}; Stitcher() wall_s={wall_d:.4f} in the "
+          "same call", flush=True)
+
     pipeline.two_nn_pairs = rec_pairs.fn
     match.two_nn = rec_rows.fn
     compose.bilinear_sample = rec_bs.fn
@@ -1777,6 +2049,19 @@ def main():
         phase()
         print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)
     tmp_dir.cleanup()
+
+    # ---- the mesh: the one-rank check, then two ranks on the card -----
+    import torch.distributed as dist
+
+    t0 = time.time()
+    try:
+        cams_m = mesh_check(imgs, Rs_true, mesh, pano_m)
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh check phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    two_rank_phase(imgs, cams_m, pano_m)
+    print(f"mesh two-rank phase: {time.time() - t0:.1f} s", flush=True)
 
     # ---- slice 6: streamed against batched, the device entry, the
     # giant canvas, strips and timelapse --------------------------------
@@ -1863,6 +2148,11 @@ def main():
                            "path's call")
     if len(nn_v) != 1 or len(nn_cli) != 1 or len(bs_cli) != per_stitch:
         raise AssertionError("verbose/cli kernel calls were not recorded")
+    if (len(nn_m) != MESH_LAUNCHES["two_nn_pairs"]
+            or len(bs_m) != MESH_LAUNCHES["bilinear_sample"]):
+        raise AssertionError("mesh kernel calls were not recorded")
+    equal_two_nn_pairs(nn_m[0], "two_nn_pairs (binary), the mesh path's "
+                       "call")
     equal_two_nn_pairs(nn_v[0], "two_nn_pairs (binary), the verbose path's "
                        "call")
     equal_two_nn_pairs(nn_cli[0], "two_nn_pairs (binary), the cli path's "
@@ -1883,12 +2173,13 @@ def main():
         "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
         "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
         "bilinear_sample": check_sampler(
-            bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs + bs_cli,
-            bs_calls + bs_calls2 + bs_calls3),
+            bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs + bs_cli
+            + bs_m, bs_calls + bs_calls2 + bs_calls3),
     }
     stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
     paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
-                                       stitches + ("verbose", "cli")),
+                                       stitches + ("verbose", "cli",
+                                                   "mesh")),
              "two_nn_pairs (binary, 512 bits)": ("two_nn_pairs",
                                                  ("brisk", "akaze")),
              "two_nn_pairs (float)": ("two_nn_pairs",
@@ -1898,7 +2189,8 @@ def main():
              "two_nn (binary)": ("two_nn", ("pair",)),
              "two_nn (float)": ("two_nn", ("float_match",)),
              "bilinear_sample": ("bilinear_sample",
-                                 stitches + tuple(det_calls) + ("cli",))}
+                                 stitches + tuple(det_calls)
+                                 + ("cli", "mesh"))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
@@ -1944,4 +2236,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

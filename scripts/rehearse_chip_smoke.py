@@ -9,7 +9,9 @@ not checked (a CPU tensor runs a kernel's plain version, which does not
 count), the 8-view workloads shrink to 3 views at the bench's spacing
 between neighbours and 3 scan crops, and the giant canvas and the strip
 layouts to an eighth of their size (under a 1-byte budget); the CLI's
-subprocess runs are skipped. It finds wrong shapes, arguments and control
+subprocess runs and the two-rank mesh phase (processes of their own on
+the card) are skipped, and the one-rank mesh is a gloo world of one on
+the CPU. It finds wrong shapes, arguments and control
 flow in the script and in the paths it drives; it can say nothing
 of the kernels or of any time. Takes 2-3 minutes on a few cores.
 """
@@ -29,6 +31,7 @@ import chip_smoke as cs  # noqa: E402
 import stitching_tpu_torch.pipeline as pipeline  # noqa: E402
 import stitching_tpu_torch.stitcher as stitcher  # noqa: E402
 from stitching_tpu_torch.ops import kernels  # noqa: E402
+from stitching_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 
 class _Event:
@@ -86,6 +89,10 @@ def main():
     # the test suite cover the same code here
     cs.cli_subprocess = lambda paths, tmp: print("cli subprocess: CUDA only")
     cs.counted_run = counted_run
+    cs.one_rank_mesh = lambda: make_mesh(device="cpu")
+    cs.two_rank_phase = lambda imgs, cams, pano: print(
+        "mesh two ranks: processes on the card only (the gloo ranks run in "
+        "tests/test_torch_mesh*.py)")
     rotation_set = cs.rotation_set
     # 3 views with the 8-view set's spacing between neighbours
     views = cs.N_VIEWS

@@ -34,6 +34,7 @@ class CameraAdjuster:
     )
     DEFAULT_CAMERA_ADJUSTER = list(CAMERA_ADJUSTER_CHOICES.keys())[0]
     DEFAULT_REFINEMENT_MASK = "xxxxx"
+    mesh = None  # optional Mesh: splits the bundle-edge axis (engine sets)
 
     def __init__(
         self,
@@ -79,8 +80,10 @@ class CameraAdjuster:
             return None
 
         # the edge axis is padded to a multiple of 4, as in the reference
-        # (padded edges carry w=0 and contribute nothing)
-        E = -(-len(edges) // 4) * 4
+        # (padded edges carry w=0 and contribute nothing); under a mesh
+        # the bucket must also divide over the ranks
+        unit = 4 if self.mesh is None else int(np.lcm(4, self.mesh.size))
+        E = -(-len(edges) // unit) * unit
         pts_src = np.zeros((E, _MATCH_CAP, 2), np.float32)
         pts_dst = np.zeros((E, _MATCH_CAP, 2), np.float32)
         w = np.zeros((E, _MATCH_CAP), np.float32)
@@ -131,7 +134,7 @@ class CameraAdjuster:
                 True, True, True,
             ])
         full, _ = solve_bundle(problem, self.adjuster, param_mask, params0,
-                               device=self.device)
+                               device=self.device, mesh=self.mesh)
         if not np.all(np.isfinite(full)):
             return None
 
@@ -154,7 +157,7 @@ class CameraAdjuster:
             # (a, b, tx, ty) from the embedded 2x3 similarity
             params0[i] = [A[0, 0], A[1, 0], A[0, 2], A[1, 2]]
         full, _ = solve_bundle(problem, "affine", np.ones(4, bool), params0,
-                               device=self.device)
+                               device=self.device, mesh=self.mesh)
         if not np.all(np.isfinite(full)):
             return None
         out = []

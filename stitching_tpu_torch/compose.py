@@ -30,6 +30,15 @@ batched one value for value.
 
 Tiles share one 64-bucketed (B, TH, TW, C) shape; true per-image corners
 and sizes ride along as host metadata.
+
+Under a mesh (`parallel.mesh`, SPMD) a stack holds this rank's block of
+tiles while corners and sizes stay whole on the host, so every rank plans
+the same geometry. The batched blend feeds each rank's tiles into
+full-size accumulators that merge with one reduction (a sum for
+multiband and feather, a maximum for the paste); strips spread over the
+ranks (`_balance_strips`), each rank receiving the tiles its strips read
+from the ranks that warped them, and the uint8 segments are gathered.
+The streamed stages stay single-rank.
 """
 
 import dataclasses
@@ -43,7 +52,9 @@ from .ops.fma import fma
 from .ops.kernels.bilinear_sample import bilinear_sample
 from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
 from .ops.warp import PROJECTORS, warp_roi
-from .pipeline import DeviceStack, resize_stack
+from .parallel.mesh import (all_gather_leading, all_reduce_max,
+                            all_reduce_sum, exchange)
+from .pipeline import DeviceStack, RankBlock, resize_stack
 
 
 def _round_up(x, m=64):
@@ -51,19 +62,22 @@ def _round_up(x, m=64):
 
 
 @dataclasses.dataclass(frozen=True)
-class TileStack:
+class TileStack(RankBlock):
     """A batch of warped tiles resident on the card.
 
     data: (B, TH, TW, C) float32; tile i's true content is [0:h_i, 0:w_i].
     masks: (B, TH, TW) float32 in {0, 255}: warp validity.
     corners: host (B, 2) int (x, y) in surface/panorama coordinates.
     sizes: host (B, 2) int (w, h) true tile sizes.
+    mesh: None, or the mesh the batch is split over: then `data` and
+    `masks` hold this rank's block of B / D tiles, corners and sizes all.
     """
 
     data: torch.Tensor
     masks: torch.Tensor
     corners: np.ndarray
     sizes: np.ndarray
+    mesh: object = None
 
     def to_host(self):
         """Lists of per-image uint8 (img, mask) host arrays cropped to the
@@ -159,34 +173,50 @@ def _k_rinv(K, R, warper_type):
             else K64 @ np.linalg.inv(R64)).astype(np.float32)
 
 
-def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type) -> TileStack:
+def warp_stack(data, src_sizes, Ks, Rs, scale, warper_type,
+               mesh=None) -> TileStack:
     """Warp the whole padded image stack in one batched pass.
 
     data: (B, H, W, C) tensor; src_sizes: (B, 2) host int (w, h);
     Ks/Rs: per-image 3x3. Returns a TileStack with true per-image ROIs.
+    With a mesh, `data` is this rank's block of B / D images (sizes, Ks
+    and Rs list all of them): every rank plans the tile shape from all
+    ROIs and warps its block.
     """
     b = data.shape[0]
     n = len(Ks)
     dev = data.device
+    lo = 0 if mesh is None else mesh.block(b * mesh.size)[0]
     corners, dsizes = plan_warp_rois(
         [tuple(s) for s in src_sizes[:n]], Ks, Rs, scale, warper_type)
     th = _round_up(int(dsizes[:, 1].max()))
     tw = _round_up(int(dsizes[:, 0].max()))
     k_rinv = np.zeros((b, 3, 3), np.float32)
-    for i in range(n):
-        k_rinv[i] = _k_rinv(Ks[i], Rs[i], warper_type)
     tls = np.zeros((b, 2), np.float32)
-    tls[:n] = corners
     # padded batch slots get a zero ROI, hence an all-zero mask
     dsz = np.zeros((b, 2), np.int32)
-    dsz[:n] = dsizes
+    for i in range(lo, min(lo + b, n)):
+        k_rinv[i - lo] = _k_rinv(Ks[i], Rs[i], warper_type)
+        tls[i - lo] = corners[i]
+        dsz[i - lo] = dsizes[i]
+    src = np.asarray(src_sizes, np.int32)[lo:lo + b]
     tiles, masks = _warp_stack_kernel(
-        data, torch.as_tensor(np.asarray(src_sizes, np.int32), device=dev),
+        data, torch.as_tensor(src, device=dev),
         torch.as_tensor(k_rinv, device=dev), torch.as_tensor(tls, device=dev),
         torch.as_tensor(dsz, device=dev), float(np.float32(1.0 / scale)),
         th=th, tw=tw, warper_type=warper_type)
     return TileStack(tiles, masks, np.asarray(corners[:n]),
-                     np.asarray(dsizes[:n]))
+                     np.asarray(dsizes[:n]), mesh)
+
+
+def gather_tiles(stack: TileStack) -> TileStack:
+    """The whole stack on every rank of its mesh, as a TileStack without
+    a mesh (the stack itself when it has none)."""
+    if stack.mesh is None:
+        return stack
+    return TileStack(all_gather_leading(stack.data, stack.mesh),
+                     all_gather_leading(stack.masks, stack.mesh),
+                     stack.corners, stack.sizes)
 
 
 def warp_single(raw, size_wh, K, R, corner, dsize, scale, warper_type,
@@ -273,13 +303,16 @@ def slice_stack(stack: TileStack, rects) -> TileStack:
     caller (crop ROI math lives in the cropper)."""
     rects = [tuple(r) for r in rects]
     n = len(rects)
-    b = stack.data.shape[0]
-    rects = rects + [(0, 0, 1, 1)] * (b - n)  # padded batch slots
+    b, lo = stack.data.shape[0], stack.lo
+    rects = rects + [(0, 0, 1, 1)] * (stack.batch - n)  # padded slots
+    # one shape from every rect, on every rank of a mesh
     shape = crop_shape(rects, int(stack.data.shape[1]),
                        int(stack.data.shape[2]))
-    tiles, masks = slice_tiles(stack.data, stack.masks, rects, *shape)
+    tiles, masks = slice_tiles(stack.data, stack.masks, rects[lo:lo + b],
+                               *shape)
     sizes = np.asarray([(r[2], r[3]) for r in rects[:n]], np.int64)
-    return TileStack(tiles, masks, np.asarray(stack.corners), sizes)
+    return TileStack(tiles, masks, np.asarray(stack.corners), sizes,
+                     stack.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -377,19 +410,22 @@ def plan_gain_arrays(compensator, sizes, b, C):
 
 
 def apply_gains_stack(stack: TileStack, compensator) -> TileStack:
-    """Apply the fed compensator to the whole tile stack on its device."""
-    mode, arrs = plan_gain_arrays(compensator, stack.sizes,
-                                  stack.data.shape[0], stack.data.shape[-1])
+    """Apply the fed compensator to the whole tile stack on its device
+    (under a mesh, to this rank's block)."""
+    mode, arrs = plan_gain_arrays(compensator, stack.sizes, stack.batch,
+                                  stack.data.shape[-1])
     if mode == "no":
         return stack
     dev = stack.data.device
+    lo, hi = stack.lo, stack.lo + stack.data.shape[0]
     if mode == "scalar":
-        tiles = _gain_mul_kernel(stack.data, torch.as_tensor(arrs,
-                                                             device=dev))
+        tiles = _gain_mul_kernel(stack.data,
+                                 torch.as_tensor(arrs[lo:hi], device=dev))
     else:
         tiles = _gain_map_kernel(
-            stack.data, *[torch.as_tensor(a, device=dev) for a in arrs])
-    return TileStack(tiles, stack.masks, stack.corners, stack.sizes)
+            stack.data, *[torch.as_tensor(a[lo:hi], device=dev)
+                          for a in arrs])
+    return dataclasses.replace(stack, data=tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -437,18 +473,23 @@ def resize_seam_masks_stack(seam_masks_low, final_stack: TileStack):
 
     seam_masks_low: a tuple (masks (B, LH, LW) float32 on the card,
     low_sizes (B, 2)). Returns (B, TH, TW) float32 aligned with
-    `final_stack.data`.
+    `final_stack.data`. Under a mesh the LOW masks are whole on every
+    rank (one row per image, or more) and this rank resizes its block.
     """
-    lo, low_sizes = seam_masks_low
+    lo_masks, low_sizes = seam_masks_low
     dev = final_stack.data.device
-    b = final_stack.data.shape[0]
-    lsz = np.ones((b, 2), np.int32)
+    b, lo = final_stack.data.shape[0], final_stack.lo
+    if final_stack.mesh is not None:
+        part = lo_masks[lo:lo + b]
+        lo_masks = torch.cat([part, part.new_zeros(
+            (b - part.shape[0], *part.shape[1:]))])
+    lsz = np.ones((final_stack.batch, 2), np.int32)
     lsz[:len(low_sizes)] = np.asarray(low_sizes, np.int32)
-    fsz = np.ones((b, 2), np.int32)
+    fsz = np.ones((final_stack.batch, 2), np.int32)
     fsz[:len(final_stack.sizes)] = final_stack.sizes
-    return _seam_resize_kernel(lo, torch.as_tensor(lsz, device=dev),
-                               final_stack.masks,
-                               torch.as_tensor(fsz, device=dev))
+    return _seam_resize_kernel(
+        lo_masks, torch.as_tensor(lsz[lo:lo + b], device=dev),
+        final_stack.masks, torch.as_tensor(fsz[lo:lo + b], device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -660,14 +701,38 @@ def _wmap_to_u8(wmap):
     return (wmap > _EPS).to(torch.uint8) * 255
 
 
-def _blend_canvas(p, tiles, seams, offs, idx, ph, pw):
+def _merge_state(state, kind, mesh):
+    """Every rank's accumulators merged, in place: summed for multiband
+    and feather (both are sums of per-tile terms), the maximum for the
+    paste (seam masks are disjoint, so each pixel has one owner and the
+    canvas is 0 elsewhere)."""
+    a, b = state
+    if kind == "multiband":
+        for t in (*a, *b):
+            all_reduce_sum(t, mesh)
+    elif kind == "feather":
+        all_reduce_sum(a, mesh)
+        all_reduce_sum(b, mesh)
+    else:
+        all_reduce_max(a, mesh)
+        all_reduce_max(b, mesh)
+
+
+def _blend_canvas(p, tiles, seams, offs, idx, ph, pw, rows=None,
+                  mesh=None):
     """The batched blend over canvas (ph, pw): the tiles `idx` fed in that
     order at window offsets `offs` (one row per entry of idx), then one
-    normalise-and-collapse. Returns (canvas (ph, pw, C), wmap (ph, pw))."""
-    state = _new_state(p["kind"], p["nb"], ph, pw, tiles.shape[-1],
-                       tiles.device)
-    for k, i in enumerate(idx):
-        _feed_one(state, p, i, tiles[i], seams[i], offs[k])
+    normalise-and-collapse. Tile idx[k] is `tiles[rows[k]]` (`tiles[idx[k]]`
+    by default). With a mesh each rank feeds its own `idx` and the
+    accumulators merge over the ranks before the collapse. Returns
+    (canvas (ph, pw, C), wmap (ph, pw))."""
+    rows = idx if rows is None else rows
+    state = _new_state(p["kind"], p["nb"], ph, pw, tiles[0].shape[-1],
+                       tiles[0].device)
+    for k, (i, r) in enumerate(zip(idx, rows)):
+        _feed_one(state, p, i, tiles[r], seams[r], offs[k])
+    if mesh is not None:
+        _merge_state(state, p["kind"], mesh)
     return _finish_state(state, p["kind"], p["nb"])
 
 
@@ -801,7 +866,8 @@ def _plan_strips(offs, szs, ww, m, gap, nb, dw, strip_w, kind="multiband"):
     return members, max_k, pw_local
 
 
-def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch):
+def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch,
+                  mesh=None):
     """Blend in strips along canvas axis `axis` (0 = column/X strips,
     1 = row/Y strips), each strip's interior equal to the monolithic
     blend's: its local canvas takes every tile whose window reaches the
@@ -812,7 +878,9 @@ def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch):
 
     stream_fetch=True: each strip's uint8 segment copies to the host while
     later strips compute (`_HostFetch`), and the result is a host
-    (pano, mask) pair; otherwise a pair of tensors on the card."""
+    (pano, mask) pair; otherwise a pair of tensors on the card. With a
+    mesh the strips spread over the ranks (`_blend_strips_mesh`) and every
+    rank returns the panorama on its device."""
     a = int(axis)
     dh, dw, ph, pw = p["dh"], p["dw"], p["ph"], p["pw"]
     n = p["n"]
@@ -825,6 +893,9 @@ def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch):
         p["gap"], p["nb"], (dw, dh)[a], strip_w, p["kind"])
     # the local canvas: the strip axis shrinks to pa_local
     lph, lpw = (ph, pa_local) if a == 0 else (pa_local, pw)
+    if mesh is not None:
+        return _blend_strips_mesh(stack, seam_masks, p, members, lph, lpw,
+                                  strip_w, a, mesh)
     fetch = _HostFetch(dev) if stream_fetch else None
     if not stream_fetch:
         pano = torch.zeros((dh, dw, C), dtype=torch.uint8, device=dev)
@@ -854,6 +925,123 @@ def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch):
     if stream_fetch:
         return fetch.assemble(dh, dw, C)
     return pano, wmask
+
+
+def _balance_strips(members, n_dev):
+    """Order strips so each device's contiguous block carries a near-even
+    share of tile-feed work (greedy longest-processing-time assignment by
+    member count). Returns (perm, n_pad): strip perm[p] goes to slot p;
+    device d owns slots [d*n_pad/D, (d+1)*n_pad/D)."""
+    n_s = len(members)
+    n_pad = -(-n_s // n_dev) * n_dev
+    per_dev = n_pad // n_dev
+    order = sorted(range(n_s), key=lambda s: -len(members[s][4]))
+    buckets = [[] for _ in range(n_dev)]
+    loads = [0] * n_dev
+    for s in order:
+        d = min(range(n_dev),
+                key=lambda k: (loads[k], len(buckets[k])))
+        if len(buckets[d]) >= per_dev:
+            d = min((k for k in range(n_dev) if len(buckets[k]) < per_dev),
+                    key=lambda k: (loads[k], len(buckets[k])))
+        buckets[d].append(s)
+        loads[d] += len(members[s][4])
+    perm = []
+    for d in range(n_dev):
+        blk = buckets[d] + [-1] * (per_dev - len(buckets[d]))
+        perm.extend(blk)
+    return perm, n_pad
+
+
+def _strip_tiles(stack, seam_masks, need, mesh):
+    """This rank's tiles and seams for the strips it blends: need[d] lists
+    the tiles rank d's strips read. Each rank sends every other rank the
+    tiles it warped and that rank needs, tile and seam in one message, and
+    receives its own in the same batch. Returns (tiles, seams, row of each
+    needed tile)."""
+    me = mesh.rank
+    b, lo = stack.data.shape[0], stack.lo
+
+    def owned(ids, d):
+        return [i for i in ids if i // b == d]
+
+    TH, TW, C = stack.data.shape[1:]
+    sends = {}
+    for d in range(mesh.size):
+        ids = owned(need[d], me) if d != me else []
+        if ids:
+            sel = torch.as_tensor([i - lo for i in ids],
+                                  device=stack.data.device)
+            sends[d] = torch.cat([stack.data[sel], seam_masks[sel, ..., None]],
+                                 -1)
+    recvs = {d: ((len(owned(need[me], d)), TH, TW, C + 1), torch.float32)
+             for d in range(mesh.size)
+             if d != me and owned(need[me], d)}
+    got = exchange(sends, recvs, mesh)
+    tiles, seams, row = [], [], {}
+    for i in need[me]:
+        d = i // b
+        if d == me:
+            tiles.append(stack.data[i - lo])
+            seams.append(seam_masks[i - lo])
+        else:
+            k = owned(need[me], d).index(i)
+            tiles.append(got[d][k, ..., :C])
+            seams.append(got[d][k, ..., C])
+        row[i] = len(tiles) - 1
+    return tiles, seams, row
+
+
+def _blend_strips_mesh(stack, seam_masks, p, members, lph, lpw, strip_w, a,
+                       mesh):
+    """The strips spread over the ranks of a mesh.
+
+    The strips are balanced over the ranks by member count
+    (`_balance_strips`, greedy LPT), each rank receives the tiles its
+    strips read (`_strip_tiles`) and blends its strips as `_blend_strips`
+    does, with no collective in the arithmetic (each strip's members
+    carry its border context), so every strip equals the single-rank
+    one. The uint8 segments, each strip_w long, are gathered and put back
+    in strip order: every rank returns the (pano, mask) tensors."""
+    dh, dw = p["dh"], p["dw"]
+    perm, n_pad = _balance_strips(members, mesh.size)
+    per = n_pad // mesh.size
+    need = [sorted({i for q in range(d * per, (d + 1) * per)
+                    if perm[q] >= 0 for i in members[perm[q]][4]})
+            for d in range(mesh.size)]
+    tiles, seams, row = _strip_tiles(stack, seam_masks, need, mesh)
+    C = stack.data.shape[-1]
+    dev = stack.data.device
+    seg_shape = (dh, strip_w) if a == 0 else (strip_w, dw)
+    segs = torch.zeros((per, *seg_shape, C), dtype=torch.uint8, device=dev)
+    wsegs = torch.zeros((per, *seg_shape), dtype=torch.uint8, device=dev)
+    for k, q in enumerate(range(mesh.rank * per, (mesh.rank + 1) * per)):
+        if perm[q] < 0 or not members[perm[q]][4]:
+            continue
+        cs, _, ls, _, keep = members[perm[q]]
+        offs = p["offs"][keep].copy()
+        offs[:, a] -= ls
+        strip, w0 = _blend_canvas(p, tiles, seams, offs, keep, lph, lpw,
+                                  rows=[row[i] for i in keep])
+        x0 = cs - ls
+        if a == 0:
+            segs[k] = _to_u8(strip[:dh, x0:x0 + strip_w])
+            wsegs[k] = _wmap_to_u8(w0[:dh, x0:x0 + strip_w])
+        else:
+            segs[k] = _to_u8(strip[x0:x0 + strip_w, :dw])
+            wsegs[k] = _wmap_to_u8(w0[x0:x0 + strip_w, :dw])
+    segs = all_gather_leading(segs, mesh)
+    wsegs = all_gather_leading(wsegs, mesh)
+    # un-permute: slot q holds strip perm[q]
+    inv = [0] * len(members)
+    for q, st in enumerate(perm):
+        if st >= 0:
+            inv[st] = q
+    pano = torch.cat([segs[q] for q in inv], 1 - a)
+    wmask = torch.cat([wsegs[q] for q in inv], 1 - a)
+    if a == 0:
+        return pano[:, :dw], wmask[:, :dw]
+    return pano[:dh], wmask[:dh]
 
 
 def _blend_monolithic_stream(stack, seam_masks, p):
@@ -916,13 +1104,22 @@ def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
     it; otherwise, with `stream_fetch`, as the streamed monolithic blend;
     otherwise in one batched pass all the same.
 
+    With a mesh (a stack split over it) each rank feeds its block of
+    tiles into full-size accumulators and one reduction per accumulator
+    merges them (`_merge_state`); over the budget the strips spread over
+    the ranks (`_blend_strips_mesh`). Every rank returns the panorama, as
+    tensors: the streamed copies are single-rank.
+
     Returns (pano_u8 (dh, dw, C), mask_u8 (dh, dw)): tensors on the
     stack's device, or host arrays where `stream_fetch` streamed the
     copy; `fetch_image` copies a tensor to the host.
     """
     if seam_masks is None:
         seam_masks = stack.masks
-    b = stack.data.shape[0]
+    mesh = stack.mesh
+    if mesh is not None:
+        stream_fetch = False
+    b = stack.batch
     C = stack.data.shape[-1]
     th, twd = int(stack.data.shape[1]), int(stack.data.shape[2])
     p = _plan_blend(stack.corners, stack.sizes, b, blender_type,
@@ -941,11 +1138,16 @@ def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
             strip_w = max(int(budget // (2 * per_unit))
                           - 2 * (p["ww"], p["wh"])[a], max(256, m))
             return _blend_strips(stack, seam_masks, p, (strip_w // m) * m,
-                                 a, stream_fetch)
+                                 a, stream_fetch, mesh)
         if stream_fetch:
             return _blend_monolithic_stream(stack, seam_masks, p)
-    canvas, wmap = _blend_canvas(p, stack.data, seam_masks, p["offs"],
-                                 range(p["n"]), ph, pw)
+    # this rank's block of the stack (all of it without a mesh)
+    lo = stack.lo
+    idx = range(lo, min(lo + stack.data.shape[0], p["n"]))
+    rows = [i - lo for i in idx]
+    canvas, wmap = _blend_canvas(p, stack.data, seam_masks,
+                                 p["offs"][list(idx)], idx, ph, pw, rows,
+                                 mesh)
     dh, dw = p["dh"], p["dw"]
     return _to_u8(canvas[:dh, :dw]), _wmap_to_u8(wmap[:dh, :dw])
 

@@ -1,13 +1,14 @@
 """The stitching engine: registration, planning and compositing.
 
-Port of `stitching_tpu/engine.py` for one card. The `Stitcher` facade
+Port of `stitching_tpu/engine.py`. The `Stitcher` facade
 drives `run` (and `stitch_device` drives `run_device`), which is
 register -> plan_composition -> composite, each a function over explicit
 dataclasses (`Registration`, `CompositionPlan`) and stacks that stay on
 the card. The stages are named for `profiling.stage_timer` as in the
 reference.
 
-Registration keeps the reference's three branches:
+Registration keeps the reference's three branches (a mesh always takes
+the sync one):
 
 - async (downscaled registration, the production shape): the ORIGINAL
   upload starts at t=0 in the background (`transfer.Uploader`); a GRAY
@@ -15,8 +16,10 @@ Registration keeps the reference's three branches:
   stack from the host resize upload inside its yield lane; one batched
   detect + match and one host copy of the small results. The registration
   keeps the uploader, subset to the kept images, and no ORIGINAL stack;
-- sync (inputs already at MEDIUM size): the originals upload once as one
-  stack, which is also the MEDIUM stack that detection reads;
+- sync (inputs already at MEDIUM size, or a mesh): the originals upload
+  once as one stack, which is also the MEDIUM stack that detection reads;
+  larger inputs under a mesh resize to MEDIUM on the host first, and the
+  originals upload after detection;
 - prestaged (`prestaged`: a `pipeline.DeviceStack` of the originals
   already on the card): no image upload at all; MEDIUM is the stack
   resized on the card.
@@ -31,6 +34,15 @@ the FINAL warp (paced by the uploader where there is one), crop, gains,
 seam masks and `blend_stack`, which takes strips or the streamed
 monolithic blend over the budget. With timelapse the batched pass writes
 one frame per image instead of blending.
+
+Under a mesh (`Stitcher(mesh=)`, `parallel.mesh`; SPMD, every rank
+called with the same inputs) each rank uploads, detects on, warps, crops,
+gains and feeds its block of the images; detection and matching gather
+their results, bundle adjustment sums its normal system over the ranks,
+the LOW tiles are gathered for the exposure and seam planning (the same
+on every rank), and the blend merges the ranks' accumulators. Every rank
+returns the panorama; with timelapse only rank 0 writes the frames. The
+streamed FINAL pass is single-rank.
 """
 
 import concurrent.futures as cf
@@ -44,14 +56,17 @@ from . import profiling as prof
 from .compose import (StreamComposite, TileStack, _gain_map_kernel,
                       _gain_mul_kernel, _plan_blend, _round_up,
                       _seam_resize_kernel, apply_gains_stack, blend_stack,
-                      crop_shape, fetch_image, plan_gain_arrays,
+                      crop_shape, fetch_image, gather_tiles,
+                      plan_gain_arrays,
                       plan_warp_rois, resize_seam_masks_stack, slice_stack,
                       slice_tiles, warp_single, warp_stack,
                       warp_stack_streamed)
 from .errors import StitchingError
 from .images import Images
 from .ops.resize import resize as _host_resize
-from .pipeline import match_stack_fetch, resize_stack, stack_images
+from .parallel.mesh import all_gather_leading
+from .pipeline import (match_stack_fetch, pad_batch, resize_stack,
+                       stack_images)
 from .subsetter import Subsetter
 from .transfer import Uploader
 from .warper import Warper
@@ -88,45 +103,63 @@ class CompositionPlan:
 # Registration
 # ---------------------------------------------------------------------------
 
+def _mesh_of(st):
+    return getattr(st, "mesh", None)
+
+
 def register(st, images, feature_masks=(), prestaged=None):
     """MEDIUM-resolution registration (see the module docstring)."""
+    mesh = _mesh_of(st)
     images_obj = Images.of(
         images, st.medium_megapix, st.low_megapix, st.final_megapix)
     originals = [np.asarray(img) for img in images_obj]
     med_sizes = images_obj.get_scaled_img_sizes(Resolution.MEDIUM)
     orig_sizes = [(im.shape[1], im.shape[0]) for im in originals]
     same = list(map(tuple, med_sizes)) == orig_sizes
-    if prestaged is None and not same:
+    if prestaged is None and mesh is None and not same:
         return _register_async(st, images_obj, originals, med_sizes,
                                feature_masks)
     return _register_sync(st, images_obj, originals, med_sizes, same,
-                          feature_masks, prestaged)
+                          feature_masks, prestaged, mesh)
 
 
 def _register_sync(st, images_obj, originals, med_sizes, same,
-                   feature_masks, prestaged=None):
+                   feature_masks, prestaged=None, mesh=None):
     """One stack of the originals (uploaded here, or prestaged); MEDIUM is
-    that stack, or that stack resized on the card."""
+    that stack, that stack resized on the card, or (a mesh, larger inputs)
+    the host-resized images, with the originals uploaded after
+    detection."""
     n = len(originals)
     with prof.stage_timer("registration/upload"):
+        stack = None
         if prestaged is not None:
             stack = prestaged
             medium = stack if same else resize_stack(
                 stack, _pad_sizes(med_sizes, stack.batch))
-        else:
-            stack = stack_images(originals, st.device)
+        elif same:
+            stack = stack_images(originals, st.device, mesh)
             medium = stack
+        else:
+            with prof.stage_timer("registration/resize_medium"):
+                medium_imgs = [_host_resize(im, size)
+                               for im, size in zip(originals, med_sizes)]
+            medium = stack_images(medium_imgs, st.device, mesh)
     with prof.stage_timer("registration/detect"):
         masks_medium = _prepare_feature_masks(st, feature_masks, medium, n)
         features = st.detector.detect_on_stack(medium, masks_medium)[:n]
+    if stack is None:
+        # the originals upload only now: detection's small upload and its
+        # copy back go first
+        with prof.stage_timer("registration/upload"):
+            stack = stack_images(originals, st.device, mesh)
     with prof.stage_timer("registration/match"):
-        matches = st.matcher.match_features(features)
+        matches = st.matcher.match_features(features, mesh=mesh)
     with prof.stage_timer("registration/subset"):
         indices, features, matches = _subset(st, images_obj, features,
                                              matches)
         if len(indices) < n:
-            stack = _subset_stack(stack, indices)
-    return _register_cameras(st, images_obj, stack, features, matches)
+            stack = _subset_stack(stack, indices, mesh)
+    return _register_cameras(st, images_obj, stack, features, matches, mesh)
 
 
 def _register_async(st, images_obj, originals, med_sizes, feature_masks):
@@ -180,12 +213,13 @@ def _subset(st, images_obj, features, matches):
     return indices, features, matches
 
 
-def _register_cameras(st, images_obj, stack, features, matches,
+def _register_cameras(st, images_obj, stack, features, matches, mesh=None,
                       uploader=None, low_stack=None):
     """Shared tail: estimate -> bundle-adjust -> wave-correct -> scale."""
     with prof.stage_timer("registration/estimate"):
         cameras = st.camera_estimator.estimate(features, matches)
     with prof.stage_timer("registration/bundle_adjust"):
+        st.camera_adjuster.mesh = mesh
         cameras = st.camera_adjuster.adjust(features, matches, cameras)
     with prof.stage_timer("registration/wave_correct"):
         cameras = st.wave_corrector.correct(cameras)
@@ -222,11 +256,23 @@ def _pad_sizes(sizes, b):
     return out
 
 
-def _subset_stack(stack, indices):
-    """Gather the kept images of a stack."""
-    idx = np.asarray(list(indices))
-    data = stack.data[idx]
-    return dataclasses.replace(stack, data=data, sizes=stack.sizes[idx])
+def _subset_stack(stack, indices, mesh=None):
+    """Gather the kept images of a stack. Under a mesh the kept images are
+    re-padded to the mesh size (padded slots duplicate the last kept image
+    at size (1, 1)) and re-distributed: every rank gathers the stack and
+    keeps its new block."""
+    idx = list(indices)
+    b2 = pad_batch(len(idx), mesh)
+    idx_full = idx + [idx[-1]] * (b2 - len(idx))
+    sizes = np.ones((b2, 2), stack.sizes.dtype)
+    sizes[:len(idx)] = stack.sizes[np.asarray(idx)]
+    if mesh is None:
+        data = stack.data[np.asarray(idx_full)]
+    else:
+        lo, hi = mesh.block(b2)
+        data = all_gather_leading(stack.data, mesh)[
+            np.asarray(idx_full[lo:hi])]
+    return dataclasses.replace(stack, data=data, sizes=sizes)
 
 
 def _prepare_feature_masks(st, feature_masks, medium_stack, n):
@@ -276,7 +322,7 @@ def warp_resolution(st, reg: Registration, resolution) -> TileStack:
             return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt)
         return warp_stack_streamed(reg.uploader, sizes, Ks, Rs, scale, wt)
     src = resize_stack(reg.stack, _pad_sizes(sizes, reg.stack.batch))
-    return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt)
+    return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt, src.mesh)
 
 
 def _crop_tiles(ts: TileStack, cropper, aspect) -> TileStack:
@@ -291,7 +337,11 @@ def _crop_tiles(ts: TileStack, cropper, aspect) -> TileStack:
 
 
 def plan_composition(st, reg: Registration) -> CompositionPlan:
-    """The LOW pass: warp, crop planning, exposure feed and seam search."""
+    """The LOW pass: warp, crop planning, exposure feed and seam search.
+
+    Under a mesh each rank warps and crops its block and the crop's paste
+    mask merges over the ranks; the small LOW tiles are then gathered, so
+    every rank plans the same gains and seam masks from the whole set."""
     with prof.stage_timer("low/warp"):
         low = warp_resolution(st, reg, Resolution.LOW)
         prof.fence(low.data, low.masks)
@@ -304,6 +354,11 @@ def plan_composition(st, reg: Registration) -> CompositionPlan:
                 [tuple(s) for s in low.sizes])
             low = _crop_tiles(low, st.cropper, 1)
         lir_aspect = reg.images.get_ratio(Resolution.LOW, Resolution.FINAL)
+        if low.mesh is not None:
+            full = gather_tiles(low)
+            n = len(low.sizes)
+            low = dataclasses.replace(full, data=full.data[:n],
+                                      masks=full.masks[:n])
     with prof.stage_timer("low/exposure_feed"):
         st.compensator.feed_stack([tuple(c) for c in low.corners], low)
     with prof.stage_timer("low/seam_find"):
@@ -341,8 +396,9 @@ def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
     """FINAL-resolution compositing: the panorama as a uint8 host array,
     or with fetch=False as a uint8 tensor on the card; None with
     timelapse, which writes one frame per image instead."""
+    mesh = _mesh_of(st)
     if (reg.uploader is not None and not st.timelapser.do_timelapse
-            and _stream_fits_budget(st, reg)):
+            and mesh is None and _stream_fits_budget(st, reg)):
         pano = _composite_streamed(st, reg, plan)
         return pano if fetch else torch.as_tensor(pano, device=st.device)
     with prof.stage_timer("final/warp"):
@@ -359,6 +415,11 @@ def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
 
     if st.timelapser.do_timelapse:
         with prof.stage_timer("final/timelapse"):
+            # under a mesh every rank gathers the tiles and rank 0 writes,
+            # so that no file has two writers
+            fin = gather_tiles(fin)
+            if mesh is not None and mesh.rank != 0:
+                return None
             corners = [tuple(c) for c in fin.corners]
             st.timelapser.initialize(corners, [tuple(s) for s in fin.sizes])
             imgs, _ = fin.to_host()
@@ -374,9 +435,11 @@ def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
         prof.fence(seams)
     with prof.stage_timer("final/blend"):
         # over the budget the blend may stream its copy to the host in
-        # bands: a host array, which fetch_image passes through
+        # bands (without a mesh): a host array, which fetch_image passes
+        # through
         pano, _ = blend_stack(fin, seams, st.blender.blender_type,
-                              st.blender.blend_strength, stream_fetch=fetch,
+                              st.blender.blend_strength,
+                              stream_fetch=fetch,
                               budget=compose.BLEND_BUDGET_BYTES)
         prof.fence(pano)
     if not fetch:
@@ -472,11 +535,12 @@ def run_device(st, images, feature_masks=(), prestaged=None):
     """The device-resident pipeline: the originals on the card (prestaged,
     or staged here with one upload), the panorama returned as a uint8
     tensor on the card. `prestaged`: a `pipeline.DeviceStack` of the
-    ORIGINAL-resolution images (a padded batch is allowed). Copy the result
-    on demand with `compose.fetch_image`."""
+    ORIGINAL-resolution images (a padded batch is allowed); under a mesh,
+    this rank's block (`pipeline.stack_images(images, mesh=m)`). Copy the
+    result on demand with `compose.fetch_image`."""
     if prestaged is None:
         prestaged = stack_images([np.asarray(im) for im in images],
-                                 st.device)
+                                 st.device, _mesh_of(st))
     reg = register(st, images, feature_masks, prestaged=prestaged)
     plan = plan_composition(st, reg)
     return composite(st, reg, plan, fetch=False)

@@ -14,6 +14,7 @@ from collections import OrderedDict
 import numpy as np
 
 from .errors import StitchingError
+from .parallel.mesh import all_gather_leading
 from .pipeline import detect_stack, stack_images
 from .types import Features
 
@@ -84,8 +85,13 @@ class FeatureDetector:
         ]
 
     def detect_on_stack(self, stack, masks=None):
-        """Detect on an already device-resident DeviceStack."""
+        """Detect on an already device-resident DeviceStack. Under a mesh
+        each rank detects on its block and the fixed-shape fields are
+        gathered, so every rank holds every image's features."""
         out = self.detect_on_stack_dispatch(stack, masks)
+        if stack.mesh is not None:
+            out = {k: all_gather_leading(v, stack.mesh)
+                   for k, v in out.items()}
         small = {k: out[k].cpu().numpy() for k in
                  ("xy", "response", "size", "angle_deg", "valid")}
         return self.features_from_host(out["desc"], small, stack.sizes)

@@ -51,8 +51,9 @@ class FeatureMatcher:
             return 0.3
         return 0.65
 
-    def match_features(self, features):
-        """All pairs at once -> flat N x N list."""
+    def match_features(self, features, mesh=None):
+        """All pairs at once -> flat N x N list. With a mesh the pair axis
+        splits over its ranks (`pipeline.match_stack_dispatch`)."""
         n = len(features)
         desc = torch.stack([torch.as_tensor(f.desc) for f in features])
         feats = dict(
@@ -64,7 +65,7 @@ class FeatureMatcher:
         pair_ij, res = match_stack(
             feats, img_sizes, matcher_type=self.matcher_type,
             match_conf=float(self.match_conf), range_width=self.range_width,
-            is_binary=features[0].is_binary)
+            is_binary=features[0].is_binary, mesh=mesh)
         return self.matches_from_host(pair_ij, res, n)
 
     def match_stacked_dispatch(self, feats, img_sizes, is_binary, *,

@@ -1,9 +1,11 @@
 """Bundle adjustment: Levenberg-Marquardt over camera parameters.
 
-Port of `stitching_tpu/ops/bundle.py` without the mesh: residuals are
-functions over a fixed-capacity (edges x matches) problem tensor and the
-Jacobian comes from `torch.func.jacfwd`, exact derivatives, batched on the
-device.
+Port of `stitching_tpu/ops/bundle.py`: residuals are functions over a
+fixed-capacity (edges x matches) problem tensor and the Jacobian comes
+from `torch.func.jacfwd`, exact derivatives, batched on the device. With a
+mesh each rank holds a block of the edges, and `J^T J`, `J^T r` and the
+costs are summed over the ranks, so every rank solves the same system and
+takes the same step.
 
 Residual models:
 - ray: residual = sqrt(f_i f_j) * (unit(R_i K_i^-1 p) - unit(R_j K_j^-1 q)),
@@ -17,7 +19,8 @@ gates which intrinsics vary; rotations always vary.
 
 The LM loop is data-dependent: each trial step's accept/reject decision is
 read on the host (one flag per step, so one device sync per step), and the
-Jacobian is evaluated again only after an accepted step. All arithmetic is
+Jacobian and the normal system are evaluated again only after an accepted
+step (under a mesh: one reduction per refresh and one per trial step). All arithmetic is
 float32, as in the reference; last-bit differences can flip an
 accept/reject, so the result, not the trajectory, is what agrees with the
 reference.
@@ -26,6 +29,7 @@ reference.
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_sum, shard_leading
 from .rotation import rodrigues_to_matrix
 
 MAX_LM_ITERS = 100  # total trial steps (accepts + rejects)
@@ -106,28 +110,42 @@ def _residual(x, params0, src_idx, dst_idx, pts_src, pts_dst, w, variant,
     raise ValueError("unknown BA variant: " + variant)
 
 
-def _lm_engine(x0, residual, max_iters):
+def _lm_engine(x0, residual, max_iters, reduce=None):
     """The LM loop. Classic trust-region damping: one trial step per
     iteration; on accept the Jacobian refreshes and lambda shrinks, on
     reject lambda grows. Terminates on relative-improvement convergence or
     8 consecutive rejects. The damped normal system solves in float32 with
     Jacobi preconditioning (scales focal-like and radian-like parameters
-    comparably)."""
+    comparably).
+
+    `reduce` sums a flat tensor over the ranks of a mesh (None: one
+    process): the normal system and the costs are reduced before any use,
+    so every rank takes the same decisions."""
     jac = torch.func.jacfwd(residual)
-    x, r, J = x0, residual(x0), jac(x0)
-    cost = (r * r).sum()
+    k = x0.numel()
+
+    def summed(*parts):
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        return flat if reduce is None else reduce(flat)
+
+    def normal(x, r, *extra):
+        J = jac(x)
+        flat = summed(J.T @ J, J.T @ r, *extra)
+        return flat[:k * k].reshape(k, k), flat[k * k:k * k + k], flat
+
+    x, r = x0, residual(x0)
+    A, g, flat = normal(x, r, (r * r).sum())
+    cost = flat[-1]
     lam = 1e-3
     rejects = 0
     for _ in range(max_iters):
-        A = J.T @ J
-        g = J.T @ r
         D = torch.diagonal(A).clamp_min(1e-12)
         dsqrt = torch.sqrt(D)
         M = (A + lam * torch.diag(D)) / dsqrt[:, None] / dsqrt[None, :]
         delta = -torch.linalg.solve(M, g / dsqrt) / dsqrt
         x_new = x + delta
         r_new = residual(x_new)
-        cost_new = (r_new * r_new).sum()
+        cost_new = summed((r_new * r_new).sum())[0]
         rel = (cost - cost_new) / cost.clamp_min(1e-30)
         # the one host read of the step: accept, and converged if accepted
         accept, converged = torch.stack([
@@ -135,7 +153,7 @@ def _lm_engine(x0, residual, max_iters):
             rel < 1e-8]).tolist()
         if accept:
             x, r, cost = x_new, r_new, cost_new
-            J = jac(x)
+            A, g, _ = normal(x, r)
             lam = max(lam / 10, 1e-12)
             rejects = 0
             if converged:
@@ -149,33 +167,45 @@ def _lm_engine(x0, residual, max_iters):
 
 
 def solve_bundle(problem, variant, param_mask, params0,
-                 max_iters=MAX_LM_ITERS, device="cuda"):
+                 max_iters=MAX_LM_ITERS, device="cuda", mesh=None):
     """Adjust cameras: returns (params (N, P) numpy array, cost).
 
     problem: dict with src_idx (E,), dst_idx (E,), pts_src/pts_dst (E, M, 2),
     w (E, M) in {0,1}. param_mask: (P,) bool over per-camera parameters;
     frozen entries keep their params0 values. The loop runs on `device`
-    (the card by default).
+    (the card by default). With a mesh it runs on `mesh.device`, each rank
+    on its block of the edges (the edge axis padded with zero-weight
+    edges to a multiple of the rank count), the sums reduced over the
+    ranks.
     """
     params0 = np.asarray(params0, np.float32)
     active_idx = tuple(int(i) for i in np.where(np.asarray(param_mask))[0])
     x0 = params0[:, list(active_idx)].reshape(-1)
+    if mesh is not None:
+        device = mesh.device
 
     def dev(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    def edges(a, dtype):
+        if mesh is None:
+            return dev(a, dtype)
+        return shard_leading(np.asarray(a), mesh).to(dtype)
+
     p0 = dev(params0, torch.float32)
-    src_idx = dev(problem["src_idx"], torch.long)
-    dst_idx = dev(problem["dst_idx"], torch.long)
-    pts_src = dev(problem["pts_src"], torch.float32)
-    pts_dst = dev(problem["pts_dst"], torch.float32)
-    w = dev(problem["w"], torch.float32)
+    src_idx = edges(problem["src_idx"], torch.long)
+    dst_idx = edges(problem["dst_idx"], torch.long)
+    pts_src = edges(problem["pts_src"], torch.float32)
+    pts_dst = edges(problem["pts_dst"], torch.float32)
+    w = edges(problem["w"], torch.float32)
 
     def residual(x):
         return _residual(x, p0, src_idx, dst_idx, pts_src, pts_dst, w,
                          variant, active_idx)
 
-    x, cost = _lm_engine(dev(x0, torch.float32), residual, int(max_iters))
+    reduce = None if mesh is None else (lambda t: all_reduce_sum(t, mesh))
+    x, cost = _lm_engine(dev(x0, torch.float32), residual, int(max_iters),
+                         reduce)
     full = params0.copy()
     full[:, list(active_idx)] = x.cpu().numpy().reshape(params0.shape[0], -1)
     return full, float(cost)

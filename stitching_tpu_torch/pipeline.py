@@ -16,7 +16,11 @@ living in device memory:
   RANSAC): the per-pair unit the match graph is built from.
 
 Stacks pad to multiples of 64; true per-image sizes ride along as host
-metadata.
+metadata. Under a mesh (`parallel.mesh`) the batch pads to a multiple of
+the rank count (`pad_batch`; padded slots are size (1, 1)) and each rank
+holds one contiguous block of it, while the sizes stay whole on the host;
+detection gathers every rank's fields, and matching splits the pair axis
+over the ranks and gathers the results.
 """
 
 import contextlib
@@ -34,6 +38,7 @@ from .ops.brisk import detect_brisk
 from .ops.orb import detect_orb
 from .ops.sift import detect_sift
 from .ops.ransac import ransac_affine_partial, ransac_homography
+from .parallel.mesh import all_gather_leading, shard_leading
 
 _BUCKET = 64
 # the detector of each `FeatureDetector` choice, over (B, H, W) planes
@@ -45,30 +50,58 @@ def _round_up(x, m=_BUCKET):
     return int(-(-x // m) * m)
 
 
+def pad_batch(n, mesh):
+    """Smallest padded batch length: a multiple of the mesh size (>= n)."""
+    if mesh is None:
+        return n
+    return -(-n // mesh.size) * mesh.size
+
+
 # ---------------------------------------------------------------------------
 # Image stacks
 # ---------------------------------------------------------------------------
 
+class RankBlock:
+    """The leading axis of a stack that may be split over a mesh: `data`
+    holds this rank's block of `batch` entries, starting at `lo`."""
+
+    @property
+    def batch(self):
+        b = self.data.shape[0]
+        return b if self.mesh is None else b * self.mesh.size
+
+    @property
+    def lo(self):
+        """Index of this rank's first entry (0 without a mesh)."""
+        return 0 if self.mesh is None else self.mesh.block(self.batch)[0]
+
+
 @dataclasses.dataclass(frozen=True)
-class DeviceStack:
+class DeviceStack(RankBlock):
     """A batch of images padded to one shape, resident on the card.
 
     data: (B, H, W, C) float32; per-image true content occupies
     [0:h_i, 0:w_i] (bottom/right padding is edge-replication).
     sizes: host (B, 2) int array of true (w, h).
+    mesh: None, or the `parallel.mesh.Mesh` the batch is split over: then
+    `data` holds this rank's block of B / D images, [lo, hi), and `sizes`
+    all B.
     """
 
     data: torch.Tensor
     sizes: np.ndarray
+    mesh: object = None
 
     @property
-    def batch(self):
-        return self.data.shape[0]
+    def local_sizes(self):
+        """Sizes of the images in `data`."""
+        return self.sizes[self.lo:self.lo + self.data.shape[0]]
 
     def image(self, i):
-        """Host copy of image i, cropped to its true size (float32)."""
+        """Host copy of image i, cropped to its true size (float32); under
+        a mesh, one of this rank's block."""
         w, h = self.sizes[i]
-        return self.data[i, :h, :w].cpu().numpy()
+        return self.data[i - self.lo, :h, :w].cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -88,33 +121,41 @@ def no_tf32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def stack_images(imgs, device="cuda"):
+def stack_images(imgs, device="cuda", mesh=None):
     """Upload a list of HxW[xC] uint8/float images as one padded stack.
 
     uint8 inputs transfer as uint8 (4x less host->device traffic) and
-    widen to float32 on the card.
+    widen to float32 on the card. With a mesh the batch pads to
+    `pad_batch` (padded slots are zero images of size (1, 1)) and this
+    rank uploads only its block, to `mesh.device`.
     """
     arrs = [np.asarray(im) for im in imgs]
     chans = 3 if any(a.ndim == 3 for a in arrs) else 1
     hp = _round_up(max(a.shape[0] for a in arrs))
     wp = _round_up(max(a.shape[1] for a in arrs))
-    b = len(arrs)
+    b = pad_batch(len(arrs), mesh)
+    lo, hi = (0, b) if mesh is None else mesh.block(b)
     u8 = all(a.dtype == np.uint8 for a in arrs)
-    out = np.zeros((b, hp, wp, chans), np.uint8 if u8 else np.float32)
+    out = np.zeros((hi - lo, hp, wp, chans), np.uint8 if u8 else np.float32)
     sizes = np.ones((b, 2), np.int32)
     for i, a in enumerate(arrs):
+        h, w = a.shape[:2]
+        sizes[i] = (w, h)
+        if not lo <= i < hi:
+            continue
         if a.ndim == 2:
             a = a[..., None]
         if a.shape[2] == 1 and chans == 3:
             a = np.repeat(a, 3, axis=2)
-        h, w = a.shape[:2]
-        out[i, :h, :w] = a
+        k = i - lo
+        out[k, :h, :w] = a
         # edge-replicate so downstream bilinear taps never mix in zeros
-        out[i, h:, :w] = out[i, h - 1: h, :w]
-        out[i, :, w:] = out[i, :, w - 1: w]
-        sizes[i] = (w, h)
+        out[k, h:, :w] = out[k, h - 1: h, :w]
+        out[k, :, w:] = out[k, :, w - 1: w]
+    if mesh is not None:
+        device = mesh.device
     data = torch.from_numpy(out).to(device).to(torch.float32)
-    return DeviceStack(data, sizes)
+    return DeviceStack(data, sizes, mesh)
 
 
 def _resize_coords(n_out, in_len, out_len, limit):
@@ -141,10 +182,14 @@ def resize_stack(stack: DeviceStack, out_sizes) -> DeviceStack:
     data = stack.data
     B, H, W, C = data.shape
     dev = data.device
+    # one padded shape on every rank of a mesh: from all the sizes
     oh = _round_up(int(out_sizes[:, 1].max()))
     ow = _round_up(int(out_sizes[:, 0].max()))
-    isz = torch.as_tensor(stack.sizes, dtype=torch.float32, device=dev)
-    osz = torch.as_tensor(out_sizes, dtype=torch.float32, device=dev)
+    lo = stack.lo
+    isz = torch.as_tensor(stack.local_sizes, dtype=torch.float32,
+                          device=dev)
+    osz = torch.as_tensor(out_sizes[lo:lo + B], dtype=torch.float32,
+                          device=dev)
     x0, x1, fx = _resize_coords(ow, isz[:, 0], osz[:, 0], W)
     y0, y1, fy = _resize_coords(oh, isz[:, 1], osz[:, 1], H)
     bi = torch.arange(B, device=dev)[:, None, None]
@@ -156,7 +201,7 @@ def resize_stack(stack: DeviceStack, out_sizes) -> DeviceStack:
     fy = fy[:, :, None, None]
     r0 = fma(tap(y0, x0), 1 - fx, tap(y0, x1) * fx)
     r1 = fma(tap(y1, x0), 1 - fx, tap(y1, x1) * fx)
-    return DeviceStack(fma(r0, 1 - fy, r1 * fy), out_sizes)
+    return DeviceStack(fma(r0, 1 - fy, r1 * fy), out_sizes, stack.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +210,8 @@ def resize_stack(stack: DeviceStack, out_sizes) -> DeviceStack:
 
 def detect_stack(stack: DeviceStack, *, nfeatures, variant="orb",
                  feature_masks=None):
-    """Detect keypoints on every image of the stack at once.
+    """Detect keypoints on every image of the stack at once (under a
+    mesh, on this rank's block; `feature_masks` lists every image).
 
     Returns a dict of stacked tensors: xy (B,N,2), response (B,N),
     size (B,N), angle_deg (B,N), desc (B,N,D), valid (B,N).
@@ -174,14 +220,14 @@ def detect_stack(stack: DeviceStack, *, nfeatures, variant="orb",
     dev = data.device
     B, h, w = data.shape[0], data.shape[1], data.shape[2]
     gray = bgr_to_gray(data) if data.shape[-1] == 3 else data[..., 0]
-    sizes = torch.as_tensor(stack.sizes, device=dev)
+    sizes = torch.as_tensor(stack.local_sizes, device=dev)
     cols = torch.arange(w, device=dev)[None, None, :]
     rows = torch.arange(h, device=dev)[None, :, None]
     region = ((cols < sizes[:, 0][:, None, None])
               & (rows < sizes[:, 1][:, None, None]))
     if feature_masks is not None:
         fm = np.zeros((B, h, w), bool)
-        for i, m in enumerate(feature_masks):
+        for i, m in enumerate(feature_masks[stack.lo:stack.lo + B]):
             if m is None:
                 fm[i] = True
             else:
@@ -241,11 +287,18 @@ def _match_pairs(desc, valid, xy, centers, pair_ij, seeds, match_conf, *,
 
 def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
                          match_conf=0.3, range_width=-1, is_binary=True,
-                         n_images=None):
+                         n_images=None, mesh=None):
     """Launch the batched pair matcher without copying results to host.
 
     Returns (pair_list, [(device_out, n_valid), ...]) — one entry per pair
     chunk; `match_stack_fetch` copies them to host.
+
+    With a mesh (every rank holding every image's features), each chunk's
+    pair axis pads to a multiple of the rank count (padded pairs are
+    (0, 0) with seed 0), each rank matches its block through the 2-NN
+    kernel, and the fixed-shape results are gathered, so every rank holds
+    them all. The per-pair seeds i * n + j make the RANSAC draws
+    independent of the split.
     """
     desc = feats["desc"]
     dev = desc.device
@@ -273,12 +326,19 @@ def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
     total = len(pair_ij)
     for lo in range(0, total, chunk_cap):
         hi = min(lo + chunk_cap, total)
-        pair_t = torch.as_tensor(pair_ij[lo:hi], device=dev)
-        seed_t = torch.as_tensor(seeds[lo:hi].astype(np.int64), device=dev)
+        seed_c = seeds[lo:hi].astype(np.int64)
+        if mesh is None:
+            pair_t = torch.as_tensor(pair_ij[lo:hi], device=dev)
+            seed_t = torch.as_tensor(seed_c, device=dev)
+        else:
+            pair_t = shard_leading(pair_ij[lo:hi], mesh)
+            seed_t = shard_leading(seed_c, mesh)
         out = _match_pairs(desc, valid, xy, centers, pair_t, seed_t,
                            float(match_conf), is_binary=is_binary,
                            model=("affine" if matcher_type == "affine"
                                   else "homography"))
+        if mesh is not None:
+            out = {k: all_gather_leading(v, mesh) for k, v in out.items()}
         chunks.append((out, hi - lo))
     return pair_ij, chunks
 

@@ -4,8 +4,11 @@ Port of `stitching_tpu/stitcher.py`: the same settings schema with the
 same defaults, unknown-kwarg `StitchingError`, the ORB match_conf default
 resolution and nfeatures forwarding, the MEDIUM / LOW / FINAL resolution
 semantics, and `AffineStitcher`'s affine defaults with the override
-warning. `device=` takes the place of the JAX package's `mesh=`: the
-pipeline runs on that device, the card by default.
+warning. The pipeline runs on `device`, the card by default. `mesh=`, as
+in the JAX package, splits the image, match-pair, bundle-edge and tile
+axes over the ranks of a `parallel.mesh.Mesh` (one process per GPU,
+SPMD: every rank calls `stitch` with the same inputs and gets the same
+panorama); the components then run on the mesh's device.
 
 `Stitcher()` runs with every default setting: ORB, homography matching,
 ray bundle adjustment, horizontal wave correction, the spherical warp, the
@@ -84,8 +87,16 @@ class Stitcher:
         "timelapse_prefix": Timelapser.DEFAULT_TIMELAPSE_PREFIX,
     }
 
-    def __init__(self, device="cuda", **kwargs):
-        self.device = torch.device(device)
+    def __init__(self, device=None, mesh=None, **kwargs):
+        if mesh is not None:
+            d = torch.device(mesh.device if device is None else device)
+            if d.type != mesh.device.type or d.index not in (
+                    None, mesh.device.index):
+                raise StitchingError(f"device {device} is not the mesh's "
+                                     f"{mesh.device}")
+            device = mesh.device
+        self.device = torch.device("cuda" if device is None else device)
+        self.mesh = mesh
         self.initialize_stitcher(**kwargs)
 
     def initialize_stitcher(self, **kwargs):
@@ -137,8 +148,10 @@ class Stitcher:
         """Device-resident stitch: the panorama as a uint8 tensor on the
         stitcher's device. `prestaged` optionally supplies the originals
         as a `pipeline.DeviceStack` already on the device, so the pipeline
-        uploads no image (the MEDIUM resize runs on the device). Copy the
-        result on demand with `compose.fetch_image`."""
+        uploads no image (the MEDIUM resize runs on the device); under a
+        mesh, this rank's block (`pipeline.stack_images(images,
+        mesh=mesh)`). Copy the result on demand with
+        `compose.fetch_image`."""
         with no_tf32():
             return engine.run_device(self, images, feature_masks, prestaged)
 

@@ -1145,3 +1145,76 @@ def test_compensator_apply_cuda_close_to_cpu(cuda_device, kind, nr_feeds):
     for idx, (img, mask, corner) in enumerate(zip(fimgs, fmasks, fcorners)):
         _near(comps[0].apply(idx, corner, img, mask),
               comps[1].apply(idx, corner, img, mask))
+
+
+# ---------------------------------------------------------------------------
+# The mesh on the card: one NCCL rank in this process
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A world of one in this process (NCCL), torn down afterwards."""
+    import torch.distributed as dist
+
+    from stitching_tpu_torch.parallel.mesh import make_mesh
+
+    assert not dist.is_initialized()
+    m = make_mesh()
+    yield m
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_one_rank_stitch_cuda(nccl_mesh):
+    """`Stitcher(mesh=)` on one NCCL rank launches both kernels, and at
+    the mesh run's cameras the non-mesh composite gives its panorama
+    (shape, crop rects, within 1 LSB, at least 99.9% equal)."""
+    import copy
+
+    from chip_smoke import rotation_set
+    from stitching_tpu_torch import Stitcher, engine
+    from stitching_tpu_torch.ops.kernels import bilinear_sample as bs
+    from stitching_tpu_torch.ops.kernels import two_nn as nn
+
+    assert nccl_mesh.backend == "nccl" and nccl_mesh.size == 1
+    imgs, _ = rotation_set(3, (640, 480), 600.0, 0.5, nccl_mesh.device)
+    st = Stitcher(mesh=nccl_mesh)
+    nn.two_nn_pairs.launches = bs.bilinear_sample.launches = 0
+    reg = engine.register(st, imgs)
+    cams = [c.copy() for c in reg.cameras]
+    plan = engine.plan_composition(st, reg)
+    rects = [tuple(r) for r in plan.crop_rects]
+    got = engine.composite(st, reg, plan)
+    assert nn.two_nn_pairs.launches >= 1
+    assert bs.bilinear_sample.launches >= 1
+    ref = Stitcher()
+    reg = copy.copy(engine.register(ref, imgs))
+    reg.cameras = cams
+    ref.warper.set_scale(cams)
+    reg.scale = ref.warper.scale
+    plan = engine.plan_composition(ref, reg)
+    assert [tuple(r) for r in plan.crop_rects] == rects
+    _near(got, engine.composite(ref, reg, plan))
+
+
+@pytest.mark.cuda
+def test_match_stack_dispatch_mesh_cuda(nccl_mesh):
+    """The pair axis through the mesh on the card equals the unsharded
+    call, each launching the 2-NN kernel once."""
+    from stitching_tpu_torch import pipeline
+
+    desc, valid, _ = _descriptors("ties")
+    rng = np.random.RandomState(1)
+    feats = dict(desc=torch.as_tensor(desc, device=nccl_mesh.device),
+                 valid=valid,
+                 xy=(rng.rand(*valid.shape, 2) * 300).astype(np.float32))
+    sizes = np.full((len(desc), 2), 320.0, np.float32)
+    two_nn_pairs.launches = 0
+    pairs, want = pipeline.match_stack(feats, sizes)
+    assert two_nn_pairs.launches == 1
+    pairs_m, got = pipeline.match_stack(feats, sizes, mesh=nccl_mesh)
+    assert two_nn_pairs.launches == 2
+    np.testing.assert_array_equal(pairs_m, pairs)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

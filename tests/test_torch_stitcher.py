@@ -305,7 +305,8 @@ def test_package_imports_neither_jax_nor_reference():
         "           if n.startswith('stitching_tpu_torch.')]))\n"
         "assert not bad, bad\n"
         "need = ['stitching_tpu_torch.' + m for m in\n"
-        "        ('cli.stitch', 'verbose', 'registration')]\n"
+        "        ('cli.stitch', 'verbose', 'registration',\n"
+        "         'parallel.mesh')]\n"
         "assert all(m in sys.modules for m in need), need\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
