@@ -9,7 +9,11 @@
    shapes where their tiles end (query rows around 16 and 64, targets
    around 8, 64 and 1024, other descriptor widths, binary rows of 257,
    486 and 512 bits among them, ties planted across every kind of edge,
-   forced grids), before anything is timed;
+   forced grids, the ends of the binary fold key's range), before
+   anything is timed; then splits the binary pairs call into its phases
+   (pre-pass, search, merge, search without the fold) at 256 and at 512
+   bits, in the kernel's design and in the one it replaced
+   (`csrc/two_nn_key32.cu`);
 3. drives the port's paths on 8 rendered views of 1600x1200 (the bench
    workload: focal 1400, +-0.6 rad), each once to warm up and once with
    the kernels' launch counters set to 0 just before and read just after,
@@ -310,13 +314,13 @@ def launched_kernels(fn, expect, what):
     return seen
 
 
-def two_nn_launches(call, nq, nt, batch, is_binary, what):
+def two_nn_launches(call, nq, nt, batch, is_binary, d, what):
     """Kernels one 2-NN call launches: counted, and held against what the
     wrapper's module states for the planned grid."""
     from stitching_tpu_torch.ops.kernels import two_nn as nn
 
     splits = nn.launch_plan(nq, nt, batch, nn._sm_count(torch.device("cuda")),
-                            bool(is_binary))[1]
+                            bool(is_binary), d)[1]
     return launched_kernels(call, nn.kernel_launches(splits), what)
 
 
@@ -416,7 +420,7 @@ def check_two_nn_pairs(call, what):
 
     times = kernel_times(
         kernel, lambda: two_nn_pairs_plain(desc, valid, pair_ij, **kw),
-        two_nn_launches(kernel, N, N, 2 * P, is_binary, what), iters=50)
+        two_nn_launches(kernel, N, N, 2 * P, is_binary, D, what), iters=50)
     nbytes = (desc.numel() * 4 + valid.numel() + pair_ij.numel() * 4
               + 3 * P * 2 * N * 4)
     # the distance products: 2 operations per element pair; 1-bit tensor
@@ -475,7 +479,8 @@ def check_two_nn(calls, what):
         return two_nn(q, t, vt, **kw)
 
     times = kernel_times(kernel, lambda: two_nn_plain(q, t, vt, **kw),
-                         two_nn_launches(kernel, nq, nt, 1, is_binary, what),
+                         two_nn_launches(kernel, nq, nt, 1, is_binary, D,
+                                         what),
                          iters=50)
     nbytes = (nq + nt) * D * 4 + nt + 3 * nq * 4
     ops = 2.0 * nq * nt * D
@@ -542,11 +547,12 @@ def check_sampler(calls, timed):
 # pairs of columns holding the same target row: one thread's two columns
 # of an `mma` tile, two lanes of a quad, two tiles of a step, one float
 # thread's next column, two float lanes, the segment's and the float
-# tile's edge (64), two steps, the binary staging chunk's edge (1024 rows at
-# 256 bits, 512 at 512 bits)
+# tile's edge (64), two steps, the binary fold window's edges (128 columns
+# at 512 bits, 256 at 256), a bulk copy's edges (256 rows), the binary
+# staging chunk's edge (1024 rows), a window that ends past the targets
 TIE_COLUMNS = [(0, 1), (4, 6), (8, 17), (3, 11), (20, 21), (63, 64),
                (60, 70), (127, 128), (1023, 1024), (1000, 1100), (2, 1299),
-               (511, 512)]
+               (511, 512), (255, 256), (383, 384), (767, 768), (129, 1290)]
 
 
 def boundary_sets(is_binary, nq, nt, d, rng):
@@ -568,8 +574,10 @@ def boundary_sets(is_binary, nq, nt, d, rng):
 
 def boundary_phase(dev):
     """Both 2-NN kernels against their plain versions where their tiles
-    end, binary rows bit for bit and float rows to the stated tolerance.
-    Raises on the first disagreement; nothing is timed."""
+    end, binary rows bit for bit and float rows to the stated tolerance,
+    then the binary pairs call's phase split (`phase_split`, which times
+    only calls it has held equal first). Raises on the first
+    disagreement."""
     from stitching_tpu_torch.ops.kernels import two_nn as nn
 
     def check(q, t, vt, is_binary, what):
@@ -644,43 +652,140 @@ def boundary_phase(dev):
             n_cases += 1
         # ties across every kind of edge, under the planned grid and forced
         # ones (query rows a block, target segments); binary rows at both
-        # packed widths (the staging chunk is 1024 rows at 256 bits, 512 at
-        # 512 bits)
+        # packed widths (at 512 bits the 256-row block too: four 16-row
+        # tiles a warp), the tied queries spread over a block's warps and
+        # tiles
         nt = 1300
+        plans = ([None, (64, 1), (64, 3), (64, 21), (256, 1), (256, 5)]
+                 if is_binary else
+                 [None, (64, 1), (128, 1), (64, 3), (128, 5), (64, 21)])
         for plan, width in [(p_, w_) for w_ in ((256, 512) if is_binary
                                                  else (128,))
-                            for p_ in (None, (64, 1), (128, 1), (64, 3),
-                                       (128, 5), (64, 21))]:
+                            for p_ in plans]:
             if plan is not None:
-                rows = 64 if is_binary else plan[0]
+                if plan[0] not in nn.rows_per_block_choices(is_binary,
+                                                            width):
+                    continue
                 units = -(-nt // nn.SPLIT_UNIT)
                 per_seg = -(-units // plan[1])
-                forced = (rows, -(-units // per_seg),
+                forced = (plan[0], -(-units // per_seg),
                           per_seg * nn.SPLIT_UNIT)
                 nn.launch_plan = lambda *a, forced=forced: forced
-            q, t, _ = boundary_sets(is_binary, 70, nt, width, rng)
+            nq = 130
+            q, t, _ = boundary_sets(is_binary, nq, nt, width, rng)
+            rows = [(17 * k) % nq for k in range(len(TIE_COLUMNS))]
             for k, (a, b) in enumerate(TIE_COLUMNS):
                 row = ((rng.rand(width) > 0.5).astype(np.float32)
                        if is_binary else rng.randn(width).astype(np.float32))
-                t[a] = t[b] = q[k] = row
+                t[a] = t[b] = q[rows[k]] = row
                 if is_binary:
-                    q[k, k] = 1 - q[k, k]
+                    q[rows[k], k] = 1 - q[rows[k], k]
                 else:
-                    q[k, :4] += 0.25
+                    q[rows[k], :4] += 0.25
             d0, d1, i0 = check(q, t, np.ones(nt, bool), is_binary,
                                f"{kind} ties, grid {plan}, width {width}")
             nn.launch_plan = planned
             want = torch.tensor([a for a, _ in TIE_COLUMNS], device=dev)
-            k = len(TIE_COLUMNS)
-            if not (torch.equal(i0[:k].long(), want)
-                    and torch.equal(d0[:k], d1[:k])):
+            idx = torch.tensor(rows, device=dev)
+            if not (torch.equal(i0[idx].long(), want)
+                    and torch.equal(d0[idx], d1[idx])):
                 raise AssertionError(
                     f"boundary {kind} ties, grid {plan}, width {width}: the "
                     "lower of two equal columns must win and d1 = d0")
             n_cases += 1
+        if is_binary:
+            # the ends of the 16-bit fold key's range: rows of all ones
+            # (the largest counts, distance 0 to each other) and of all
+            # zeros (the largest distance to all ones), valid and invalid
+            for width in (256, 257, 486, 512):
+                q, t, vt = boundary_sets(True, 70, 1300, width, rng)
+                q[:10], q[10:20] = 1.0, 0.0
+                t[[5, 700, 1299]], t[[6, 900]] = 1.0, 0.0
+                t[[100, 1000]], t[[101, 1001]] = 1.0, 0.0
+                vt[[5, 700, 1299, 6, 900]] = True
+                vt[[100, 1000, 101, 1001]] = False
+                got = check(q, t, vt, True, f"binary key range {width}")
+                if not (bool((got[2][:10] == 5).all())
+                        and bool((got[0][:20] == 0).all())
+                        and bool((got[2][10:20] == 6).all())):
+                    raise AssertionError(f"boundary binary key range "
+                                         f"{width}: wrong nearest")
+                desc = np.stack([q[:70], t[:70], t[1230:]])
+                valid = np.stack([np.ones(70, bool), vt[:70], vt[1230:]])
+                pairs = np.asarray([[0, 1], [0, 2], [2, 1]], np.int32)
+                check_pairs(desc, valid, pairs, True,
+                            f"binary key range pairs {width}")
+                n_cases += 2
     print(f"boundary shapes: {n_cases} cases of two_nn and two_nn_pairs, "
           "binary equal to plain, float within 1e-3 relative + 1e-3",
           flush=True)
+    phase_split(dev)
+
+
+# the binary pairs call's phases (`two_nn_pairs_binary_phase`): the whole
+# call, the pre-pass, the search, the merge, the search with the fold left
+# out
+PHASES = {"call_ms": 0, "prepass_ms": 1, "search_ms": 2, "merge_ms": 4,
+          "search_nofold_ms": 3}
+
+
+def phase_split(dev):
+    """The binary pairs call split into its phases at the paths' shapes (8
+    images of 500 rows of 256 bits, ORB's; of 1024 rows of 512 bits,
+    BRISK's and AKAZE's; 28 pairs), in the kernel's design and in the one
+    it replaced (`csrc/two_nn_key32.cu`), each call first held equal to
+    the plain version. Graph-replay ms per launch of each phase alone;
+    the merge runs only where the plan splits the target axis."""
+    from stitching_tpu_torch.ops import kernels
+    from stitching_tpu_torch.ops.kernels import two_nn as nn
+
+    rng = np.random.RandomState(17)
+    pairs = torch.as_tensor(np.asarray(
+        [(i, j) for i in range(8) for j in range(i + 1, 8)], np.int32),
+        device=dev)
+    P = pairs.shape[0]
+    for d, n in ((256, 500), (512, 1024)):
+        desc = torch.as_tensor((rng.rand(8, n, d) > 0.5).astype(np.float32),
+                               device=dev)
+        valid = torch.as_tensor(rng.rand(8, n) > 0.05, device=dev)
+        ref = nn.two_nn_pairs_plain(desc, valid, pairs)
+        planned = nn.launch_plan(n, n, 2 * P, nn._sm_count(dev), True, d)
+        units = -(-n // nn.SPLIT_UNIT)
+        # the replaced design's plan: 64-row blocks, which fill the card at
+        # these shapes without a split
+        runs = [("key32", "two_nn_pairs_binary_key32_phase",
+                 (64, 1, units * nn.SPLIT_UNIT)),
+                ("window16", "two_nn_pairs_binary_phase", planned)]
+        for design, entry, (rows, splits, seg) in runs:
+            fn = kernels.load(entry)
+            scratch = nn._scratch(dev, 8 * n * (nn.binary_words(d) + 2), n,
+                                  2 * P, splits)
+            got = [torch.empty((P, 2, n), dtype=dt, device=dev)
+                   for dt in (torch.float32, torch.float32, torch.int32)]
+
+            def run(phase):
+                kernels.check(fn(
+                    phase, desc.data_ptr(), valid.data_ptr(),
+                    pairs.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                    *(x.data_ptr() for x in got), 8, n, d, P,
+                    int(nn._has_pad(n, nn.PAIRS_PAD)), rows, splits, seg,
+                    kernels.stream_ptr(dev)), f"{entry} phase {phase}")
+
+            run(0)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("d0", "d1", "i0"), got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"phase split, {d} bits, {design} "
+                                         f"grid {rows, splits, seg}: {name} "
+                                         "differs from the plain version")
+            times = {k: (None if k == "merge_ms" and splits == 1 else
+                         float(np.median([graph_ms(lambda: run(ph), 50)
+                                          for _ in range(3)])))
+                     for k, ph in PHASES.items()}
+            print(f"phase split {d} bits, {design}, grid "
+                  f"{rows}/{splits}/{seg} (equal to plain): "
+                  + " ".join(f"{k}={'none' if v is None else f'{v:.5f}'}"
+                             for k, v in times.items()), flush=True)
 
 
 def profile_stitch(st, imgs):
@@ -2194,26 +2299,26 @@ def main():
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
-            "stitching_tpu/ops/pallas/two_nn.py:143"),
+            "stitching_tpu/ops/pallas/two_nn.py:144"),
         "two_nn_pairs (binary, 512 bits)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
-            "stitching_tpu/ops/pallas/two_nn.py:143"),
+            "stitching_tpu/ops/pallas/two_nn.py:144"),
         "two_nn_pairs (float)": (
             "stitching_tpu_torch/csrc/two_nn_float.cu",
-            "stitching_tpu/ops/pallas/two_nn.py:143"),
+            "stitching_tpu/ops/pallas/two_nn.py:144"),
         "two_nn_pairs (float, synthetic)": (
             "stitching_tpu_torch/csrc/two_nn_float.cu",
-            "stitching_tpu/ops/pallas/two_nn.py:143"),
+            "stitching_tpu/ops/pallas/two_nn.py:144"),
         "two_nn (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
-            "stitching_tpu/ops/pallas/two_nn.py:66"),
+            "stitching_tpu/ops/pallas/two_nn.py:67"),
         "two_nn (float)": (
             "stitching_tpu_torch/csrc/two_nn_float.cu",
-            "stitching_tpu/ops/pallas/two_nn.py:66"),
+            "stitching_tpu/ops/pallas/two_nn.py:67"),
         "bilinear_sample": (
             "stitching_tpu_torch/csrc/bilinear_sample.cu",
-            "stitching_tpu/ops/pallas/block_warp.py:212 (and block_sample, "
-            "block_warp.py:73)"),
+            "stitching_tpu/ops/pallas/block_warp.py:213 (and block_sample, "
+            "block_warp.py:74)"),
     }
     rows = []
     for name, res in results.items():

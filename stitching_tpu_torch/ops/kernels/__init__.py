@@ -34,6 +34,11 @@ _ROWS = [_P] * 4 + [_L] + [_P] * 3 + [_I] * 7 + [_P]
 ENTRIES = {
     "two_nn_pairs_binary": ("two_nn", _PAIRS),
     "two_nn_binary": ("two_nn", _ROWS),
+    # measurement aids: one phase of a binary pairs call (pre-pass, search,
+    # search without the fold, merge), in the kernel's design and in the
+    # one it replaced (32-bit keys)
+    "two_nn_pairs_binary_phase": ("two_nn", [_I] + _PAIRS),
+    "two_nn_pairs_binary_key32_phase": ("two_nn_key32", [_I] + _PAIRS),
     "two_nn_pairs_float": ("two_nn_float", _PAIRS),
     "two_nn_float": ("two_nn_float", _ROWS),
     "bilinear_sample": ("bilinear_sample", [_P] * 4 + [_I] * 6 + [_P]),

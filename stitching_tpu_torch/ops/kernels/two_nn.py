@@ -48,8 +48,13 @@ SPLIT_UNIT = 64     # the target axis splits into multiples of this
 # targets a segment may hold (the binary kernel keeps a column in 16 bits of
 # its fold key)
 ROWS_PER_BLOCK = {True: (64,), False: (128, 64)}
-BLOCKS_PER_SM = {True: 2, False: 6}
+BLOCKS_PER_SM = {True: 1, False: 6}
 MAX_SEGMENT = {True: 1 << 16, False: 1 << 30}
+# the binary kernel on rows of 16 words (over 256 bits): a warp may take four
+# 16-row tiles (a block 256 rows), which share every B fragment it reads
+# from shared memory; rows of 64 bytes read twice the bytes per distance of
+# rows of 32
+WIDE_ROWS_PER_BLOCK = (256, 64)
 
 
 def _round_up(x, m):
@@ -114,18 +119,27 @@ def binary_words(d):
 
 
 def pack_bits_plain(desc):
-    """A {0,1} float row of up to 512 columns as `binary_words(D)` words
-    of 32 bits (bit k of word w is column 32 w + k, zero beyond the row)
-    and its bit count: (words (..., W) int64 in [0, 2^32), count (...,)
-    float32)."""
+    """A {0,1} float row of up to 512 columns packed as the binary kernel
+    packs it, into `binary_words(D)` = W words of 32 bits: bit k of k-word w
+    holds column 128 (w // 4) + 4 k + w % 4 (zero beyond the row; any order
+    of the bits that every row shares gives the same distances), and k-word
+    w = 4 q + t is stored at position t W / 4 + q, where the `mma`
+    fragments of quad lane t read it. Returns the words (..., W) int64 in
+    [0, 2^32) and the bit count (...,) float32."""
     bits = desc > 0.5
     D = bits.shape[-1]
-    words = binary_words(D)
-    pad = bits.new_zeros(bits.shape[:-1] + (32 * words - D,))
+    W = binary_words(D)
+    pad = bits.new_zeros(bits.shape[:-1] + (32 * W - D,))
+    # (..., i, k, j): column 128 i + 4 k + j, bit k of k-word 4 i + j
     bits = torch.cat([bits, pad], dim=-1).reshape(
-        bits.shape[:-1] + (words, 32)).to(torch.int64)
+        bits.shape[:-1] + (W // 4, 32, 4)).transpose(-1, -2)
+    bits = bits.reshape(bits.shape[:-3] + (W, 32)).to(torch.int64)
     weights = 1 << torch.arange(32, dtype=torch.int64, device=desc.device)
-    return (bits * weights).sum(-1), bits.sum((-1, -2)).to(torch.float32)
+    kwords = (bits * weights).sum(-1)
+    w = torch.arange(W, device=desc.device)
+    words = torch.empty_like(kwords)
+    words[..., (w % 4) * (W // 4) + w // 4] = kwords
+    return words, bits.sum((-1, -2)).to(torch.float32)
 
 
 def _popcount(x):
@@ -143,15 +157,23 @@ def hamming_from_words(q_words, q_count, t_words, t_count):
     return q_count[:, None] + t_count[None, :] - 2.0 * both.to(torch.float32)
 
 
-def launch_plan(nq, nt, batch, sm_count, is_binary):
-    """The search kernels' grid for `batch` query sets of nq rows against nt
-    targets: (query rows a block, target segments, targets a segment). The
-    largest tile of `ROWS_PER_BLOCK` that still gives every SM a block, else
-    the smallest; then, if that leaves fewer than `BLOCKS_PER_SM` blocks an
-    SM, the target axis splits into equal segments of whole `SPLIT_UNIT`s
-    until the blocks suffice or a segment is one unit. A segment never
-    exceeds `MAX_SEGMENT`."""
-    for rows in ROWS_PER_BLOCK[is_binary]:
+def rows_per_block_choices(is_binary, d=None):
+    """The query rows a search block may take, largest first, for rows of
+    `d` columns (binary rows over 256 bits: `WIDE_ROWS_PER_BLOCK`)."""
+    if is_binary and d is not None and binary_words(d) == 16:
+        return WIDE_ROWS_PER_BLOCK
+    return ROWS_PER_BLOCK[is_binary]
+
+
+def launch_plan(nq, nt, batch, sm_count, is_binary, d=None):
+    """The search kernels' grid for `batch` query sets of nq rows of `d`
+    columns against nt targets: (query rows a block, target segments,
+    targets a segment). The largest tile of `rows_per_block_choices` that
+    still gives every SM a block, else the smallest; then, if that leaves
+    fewer than `BLOCKS_PER_SM` blocks an SM, the target axis splits into
+    equal segments of whole `SPLIT_UNIT`s until the blocks suffice or a
+    segment is one unit. A segment never exceeds `MAX_SEGMENT`."""
+    for rows in rows_per_block_choices(is_binary, d):
         blocks = -(-nq // rows) * batch
         if blocks >= sm_count:
             break
@@ -257,7 +279,7 @@ def two_nn_pairs(desc, valid, pair_ij, *, is_binary=True):
     with torch.cuda.device(dev):
         is_binary = bool(is_binary)
         rows, splits, seg = launch_plan(N, N, 2 * P, _sm_count(dev),
-                                        is_binary)
+                                        is_binary, D)
         # per operand row: its packed words and two bit counts, or two norms
         per_row = binary_words(D) + 2 if is_binary else 2
         scratch = _scratch(dev, B * N * per_row, N, 2 * P, splits)
@@ -303,7 +325,8 @@ def two_nn(desc_q, desc_t, valid_t, *, is_binary=True):
     pad_col = int(_has_pad(nt, ROWS_PAD))
     with torch.cuda.device(dev):
         is_binary = bool(is_binary)
-        rows, splits, seg = launch_plan(nq, nt, 1, _sm_count(dev), is_binary)
+        rows, splits, seg = launch_plan(nq, nt, 1, _sm_count(dev), is_binary,
+                                        D)
         per_row = binary_words(D) + 2 if is_binary else 1
         scratch = _scratch(dev, (nq + nt) * per_row, nq, 1, splits)
         status = load("two_nn_binary" if is_binary else "two_nn_float")(

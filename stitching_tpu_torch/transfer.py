@@ -34,7 +34,9 @@ import torch
 
 from . import profiling as prof
 
-_CHUNK_BYTES = 3_000_000  # the reference's: ~75 ms a chunk on its link
+# bytes a copy of one image's rows moves at a time: the reference's chunk
+# size, carried over unchanged
+_CHUNK_BYTES = 3_000_000
 
 
 class _ImageSlot:

@@ -471,6 +471,66 @@ def test_two_nn_binary_cuda_wide_fragment_layout(cuda_device, d):
         assert float(d0[r]) == r and float(d1[r]) == r + 1
 
 
+# target columns of the binary kernel's own edges, each pair planted with
+# one target row: two steps of a fold window, the window's edge (128
+# columns at 512 bits, 256 at 256), a bulk copy's edges (256 rows), the
+# staging chunk's edge (1024 rows), a window that ends past the targets
+_FOLD_EDGES = [(31, 32), (127, 128), (255, 256), (383, 384), (511, 512),
+               (767, 768), (1023, 1024), (129, 1290), (0, 1299)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (64, 1), (64, 3), (256, 1),
+                                  (256, 5)])
+@pytest.mark.parametrize("d", [257, 486, 512])
+def test_two_nn_binary_cuda_fold_edges(cuda_device, monkeypatch, d, plan):
+    """Wide binary rows against the plain versions with ties on every edge
+    of the fold: query row 17 k (spread over a block's warps and a warp's
+    four 16-row tiles) is at distance 1 from the row planted at both
+    columns of `_FOLD_EDGES[k]`, so i0 is the lower column and d1 = d0;
+    1300 targets (not a multiple of a window), under the planned grid and
+    forced ones (64- and 256-row blocks, split target axes). Then the ends
+    of the 16-bit key's range: queries of all ones and all zeros against
+    targets of all ones and all zeros, valid and invalid, and a target
+    set with every target invalid."""
+    import stitching_tpu_torch.ops.kernels.two_nn as mod
+
+    nq, nt = 160, 1300
+    if plan is not None:
+        units = -(-nt // mod.SPLIT_UNIT)
+        per_seg = -(-units // plan[1])
+        forced = (plan[0], -(-units // per_seg), per_seg * mod.SPLIT_UNIT)
+        monkeypatch.setattr(mod, "launch_plan", lambda *a: forced)
+    q, t, vt = _edge_sets(True, nq, nt, d, seed=4)
+    rng = np.random.RandomState(d)
+    rows = [17 * k for k in range(len(_FOLD_EDGES))]
+    for k, (a, b) in enumerate(_FOLD_EDGES):
+        row = (rng.rand(d) > 0.5).astype(np.float32)
+        t[a] = t[b] = q[rows[k]] = row
+        vt[a] = vt[b] = True
+        q[rows[k], 3 * k] = 1 - q[rows[k], 3 * k]
+    d0, d1, i0 = _check_two_nn(cuda_device, q, t, vt, True)
+    for k, (a, _) in enumerate(_FOLD_EDGES):
+        assert int(i0[rows[k]]) == a
+        assert float(d0[rows[k]]) == 1.0 and float(d1[rows[k]]) == 1.0
+
+    q[1:5], q[5:9] = 1.0, 0.0
+    t[[7, 700, 1299]], t[[8, 900]] = 1.0, 0.0
+    t[[100, 1000]], t[[101, 1001]] = 1.0, 0.0
+    vt[[7, 700, 1299, 8, 900]] = True
+    vt[[100, 1000, 101, 1001]] = False
+    d0, d1, i0 = _check_two_nn(cuda_device, q, t, vt, True)
+    assert bool((i0[1:5] == 7).all()) and bool((i0[5:9] == 8).all())
+    assert bool((d0[1:9] == 0).all()) and bool((d1[1:9] == 0).all())
+    desc = np.stack([q[:70], t[:70], t[1230:]])
+    valid = np.stack([np.ones(70, bool), vt[:70], vt[1230:]])
+    pairs = np.asarray([[0, 1], [0, 2], [2, 1], [1, 1]], np.int32)
+    _check_two_nn_pairs(cuda_device, desc, valid, pairs, True)
+
+    d0, d1, i0 = _check_two_nn(cuda_device, q, t, np.zeros(nt, bool), True)
+    assert bool((i0 == 0).all()) and bool((d0 >= 1e29).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("splits", [1, 2])
 @pytest.mark.parametrize("nq", [1, 127, 128, 129, 513])

@@ -220,7 +220,8 @@ def test_packed_words_give_the_plain_hamming_distances(d):
     assert q_words.shape == (37, 8 if d <= 256 else 16)
     assert int(q_words.max()) < 2 ** 32
     assert torch.equal(q_count, q.sum(-1)) and float(t_count[7]) == d
-    assert int(q_words[:, -(-d // 32):].abs().sum()) == 0    # zero padding
+    # no bit past the row: an all-ones row sets d bits
+    assert sum(bin(int(x)).count("1") for x in t_words[7]) == d
     got = hamming_from_words(q_words, q_count, t_words, t_count)
     plain = q.sum(-1)[:, None] + t.sum(-1)[None, :] - 2.0 * (q @ t.t())
     assert torch.equal(got, plain)
@@ -229,6 +230,22 @@ def test_packed_words_give_the_plain_hamming_distances(d):
     dist = torch.where(vt[None, :], got, two_nn_mod.BIG)
     for g, r in zip(_top2(dist, 53, ROWS_PAD), two_nn_plain(q, t, vt)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("d", [256, 257, 512])
+def test_packed_words_follow_the_kernel_layout(d):
+    """Column c is bit (c % 128) // 4 of k-word w = 4 (c // 128) + c % 4,
+    and k-word w = 4 q + t sits at position t W / 4 + q: a row with one
+    column set packs to one bit there."""
+    W = 8 if d <= 256 else 16
+    for c in (0, 1, 3, 4, 127, 128, 130, 255, d - 1):
+        row = torch.zeros(d)
+        row[c] = 1.0
+        words, count = pack_bits_plain(row)
+        w = 4 * (c // 128) + c % 4
+        want = torch.zeros(W, dtype=torch.int64)
+        want[(w % 4) * (W // 4) + w // 4] = 1 << ((c % 128) // 4)
+        assert torch.equal(words, want) and float(count) == 1.0
 
 
 @pytest.mark.parametrize("nq,nt,batch", [
@@ -241,8 +258,23 @@ def test_launch_plan_covers_the_targets(nq, nt, batch, is_binary):
     covered; the larger tile only where it gives every SM a block; a split
     only where the blocks are short of the kernel's target (or a segment
     would outgrow the kernel's column field), and no finer than needed."""
-    rows, splits, seg = launch_plan(nq, nt, batch, 132, is_binary)
-    choices = two_nn_mod.ROWS_PER_BLOCK[is_binary]
+    _check_plan(nq, nt, batch, is_binary, None)
+
+
+@pytest.mark.parametrize("nq,nt,batch", [
+    (1024, 1024, 56), (1024, 1024, 1), (500, 500, 56), (1, 1, 1),
+    (70, 1300, 1), (513, 4097, 1), (3, 200000, 1), (100000, 200000, 1)])
+@pytest.mark.parametrize("d", [257, 486, 512])
+def test_launch_plan_covers_the_targets_wide_rows(nq, nt, batch, d):
+    """`test_launch_plan_covers_the_targets` for binary rows over 256 bits,
+    whose blocks may take 256 query rows (four tiles a warp)."""
+    assert two_nn_mod.rows_per_block_choices(True, d) == (256, 64)
+    _check_plan(nq, nt, batch, True, d)
+
+
+def _check_plan(nq, nt, batch, is_binary, d):
+    rows, splits, seg = launch_plan(nq, nt, batch, 132, is_binary, d)
+    choices = two_nn_mod.rows_per_block_choices(is_binary, d)
     assert rows in choices and seg % two_nn_mod.SPLIT_UNIT == 0
     assert (splits - 1) * seg < nt <= splits * seg
     assert seg <= two_nn_mod.MAX_SEGMENT[is_binary]
@@ -269,6 +301,11 @@ def test_launch_plan_at_the_paths_shapes():
     assert launch_plan(500, 500, 56, 132, False) == (128, 4, 128)
     assert launch_plan(500, 500, 1, 132, True) == (64, 8, 64)
     assert launch_plan(500, 500, 1, 132, False) == (64, 8, 64)
+    # BRISK's and AKAZE's 28 pairs of 1024 rows of 512 bits: four tiles a
+    # warp, no split; a pair of them per `two_nn` call: 64-row blocks
+    assert launch_plan(1024, 1024, 56, 132, True, 512) == (256, 1, 1024)
+    assert launch_plan(500, 500, 56, 132, True, 256) == (64, 1, 512)
+    assert launch_plan(1024, 1024, 1, 132, True, 512) == (64, 8, 128)
 
 
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
