@@ -39,7 +39,10 @@
      "sift").stitch` on the scan, each with its profiler stage table
      (`registration/detect` among the stages) and its cameras held to the
      truth,
-   - `pipeline.register_pair` on the first two views at MEDIUM size,
+   - `pipeline.register_pair` on the first two views at MEDIUM size, and
+     on `__graft_entry__.entry`'s two crops at its 256 features and 128
+     RANSAC draws (`n_iters`), held to the CPU run of the same call
+     (inliers equal, H within 1e-4) and to the 80 px shift,
    - the matchers on float descriptors (128 wide, made from a seed):
      `FeatureMatcher.match_features` and `ops.match.match_pair`,
    - `Stitcher().stitch_verbose` (the step-by-step component API: no
@@ -59,8 +62,9 @@
    equal bit for bit, and at the one-rank run's cameras within 1 LSB of
    its panorama, and each holds the strips split over both ranks (tiles
    sent point to point) against the non-mesh strips; then
-   the slice-8 phases: the CLI in a process of its own on 3 views, with
-   and without -v; `stitch_verbose` on 3 views against the CPU's run with
+   the slice-8 phases: the CLI in a process of its own on 3 views, plain,
+   with -v and with --preview (written, and the no-GUI notice on
+   stderr); `stitch_verbose` on 3 views against the CPU's run with
    the card's registration; the verbose run's cameras saved and loaded;
    then the slice-6 phases: the streamed FINAL pass against the batched one on
    the same cameras; `Stitcher.stitch_device` on a prestaged stack; a
@@ -223,6 +227,20 @@ def scan_set(n, size, seed=0):
     offsets = [(40 + i * step, 40 + (i % 2) * 12) for i in range(n)]
     return ([np.ascontiguousarray(scene[y:y + h, x:x + w])
              for x, y in offsets], offsets)
+
+
+def graft_crops():
+    """`__graft_entry__.entry`'s two crops, rebuilt here with numpy (that
+    module imports JAX): two 256 x 320 views of one structured scene, the
+    second 80 px right of the first."""
+    rng = np.random.RandomState(0)
+    scene = np.zeros((300, 460), np.float32)
+    for _ in range(250):
+        x, y = rng.randint(0, 440), rng.randint(0, 280)
+        w, h = rng.randint(4, 24), rng.randint(4, 24)
+        scene[y:y + h, x:x + w] += rng.uniform(20, 90)
+    scene = np.clip(scene, 0, 255)
+    return scene[20:276, 0:320], scene[20:276, 80:400]
 
 
 def time_ms(fn, iters):
@@ -1724,24 +1742,34 @@ def registration_phase(cameras, scale, tmp):
         raise AssertionError("registration: the loaded cameras differ")
 
 
+PREVIEW_NOTICE = "preview unavailable (no GUI backend)"
+
+
 def cli_subprocess(paths, tmp):
-    """`python -m stitching_tpu_torch.cli.stitch` on 3 views, with and
-    without -v, in processes of their own: each must exit 0 and write its
-    panorama."""
+    """`python -m stitching_tpu_torch.cli.stitch` on 3 views, plain, with
+    -v and with --preview, in processes of their own: each must exit 0 and
+    write its panorama; --preview (this host has no GUI) also prints the
+    reference's no-GUI notice on stderr."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
-    for extra in ([], ["-v", "--verbose_dir", os.path.join(tmp, "cli_v")]):
-        out = os.path.join(tmp, f"cli3{'_v' if extra else ''}.jpg")
+    for tag, extra in (("", []),
+                       ("_v", ["-v", "--verbose_dir",
+                               os.path.join(tmp, "cli_v")]),
+                       ("_preview", ["--preview"])):
+        out = os.path.join(tmp, f"cli3{tag}.jpg")
         t0 = time.time()
         run = subprocess.run(
             [sys.executable, "-m", "stitching_tpu_torch.cli.stitch",
              *paths[:3], "--output", out, *extra], cwd=root,
             capture_output=True, text=True, timeout=600)
+        notice = PREVIEW_NOTICE in run.stderr
         print(f"cli subprocess {' '.join(extra) or '(default)'}: exit "
               f"{run.returncode} in {time.time() - t0:.1f} s, output "
-              f"{os.path.exists(out)}", flush=True)
-        if run.returncode != 0 or not os.path.exists(out):
+              f"{os.path.exists(out)}, no-GUI notice on stderr {notice}",
+              flush=True)
+        if (run.returncode != 0 or not os.path.exists(out)
+                or notice != ("--preview" in extra)):
             raise AssertionError("cli subprocess failed: "
                                  + run.stderr[-2000:])
 
@@ -2010,6 +2038,26 @@ def main():
     if int(n_inl) < 30 or not h_err < 3.0:
         raise AssertionError("the pair path's homography is wrong")
 
+    # the entry's own pair (`__graft_entry__.entry`): its two crops, 256
+    # features, 128 RANSAC draws; the card's run against the CPU's
+    crop_a, crop_b = graft_crops()
+    (H_e, n_e), wall_e, (_, entry_rows, _) = drive(
+        "pair_entry", lambda: pipeline.register_pair(
+            crop_a, crop_b, nfeatures=256, n_iters=128),
+        {"two_nn_pairs": 0, "two_nn": 2, "bilinear_sample": 0})
+    H_c, n_c = pipeline.register_pair(crop_a, crop_b, nfeatures=256,
+                                      n_iters=128, device="cpu")
+    H_e, H_c = H_e.cpu().numpy(), H_c.numpy()
+    h_gap = float(np.abs(H_e - H_c).max())
+    print(f"pair_entry (the entry's crops, 256 features, 128 draws): "
+          f"{int(n_e)} inliers on the card, {int(n_c)} on the CPU; shift "
+          f"x {H_e[0, 2]:.4f} y {H_e[1, 2]:.4f} px (truth -80, 0); H within "
+          f"{h_gap:.3g} of the CPU's", flush=True)
+    if (int(n_e) != int(n_c) or not h_gap <= 1e-4
+            or abs(H_e[0, 2] + 80.0) > 1.0 or abs(H_e[1, 2]) > 1.0):
+        raise AssertionError("the entry's pair on the card differs from its "
+                             "CPU run or misses the 80 px shift")
+
     # ---- path 8: the matchers on float descriptors -------------------
     feats = float_features(8, 500, dev)
     matcher = FeatureMatcher(match_conf=0.65)
@@ -2233,6 +2281,7 @@ def main():
     if (len(nn_calls) != 1 or len(nn_calls2) != 1 or len(nn_calls3) != 1
             or len(bs_calls) != per_stitch or len(bs_calls2) != per_stitch
             or len(bs_calls3) != per_stitch or len(rows_calls) != 2
+            or len(entry_rows) != 2
             or len(fnn_calls) != 1 or len(frows_calls) != 2
             or any(len(c) != 1 for c in new_nn.values())
             or any(len(c[0]) != 1 for c in det_calls.values())
@@ -2275,7 +2324,8 @@ def main():
             det_calls["sift"][0][0], "two_nn_pairs (float)"),
         "two_nn_pairs (float, synthetic)": check_two_nn_pairs(
             fnn_calls[0], "two_nn_pairs (float, synthetic)"),
-        "two_nn (binary)": check_two_nn(rows_calls, "two_nn (binary)"),
+        "two_nn (binary)": check_two_nn(rows_calls + entry_rows,
+                                        "two_nn (binary)"),
         "two_nn (float)": check_two_nn(frows_calls, "two_nn (float)"),
         "bilinear_sample": check_sampler(
             bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs + bs_cli
@@ -2291,7 +2341,7 @@ def main():
                                       ("sift", "affine_sift")),
              "two_nn_pairs (float, synthetic)": ("two_nn_pairs",
                                                  ("float_match",)),
-             "two_nn (binary)": ("two_nn", ("pair",)),
+             "two_nn (binary)": ("two_nn", ("pair", "pair_entry")),
              "two_nn (float)": ("two_nn", ("float_match",)),
              "bilinear_sample": ("bilinear_sample",
                                  stitches + tuple(det_calls)

@@ -8,16 +8,18 @@ component class constants, plus --version, -v/--verbose/--verbose_dir,
 --affine, --feature_masks, --preview, --output and --output_params, from
 one declarative flag table. The stitch runs on the card; `main(device=)`
 takes another device from Python (the tests pass "cpu"). The package has
-no GUI, so --preview raises.
+no GUI: --preview stitches and writes --output as without the flag, then
+says on stderr that no preview is available, as the reference does on a
+host without a GUI backend.
 """
 
 import argparse
 import os
+import sys
 from datetime import datetime
 
 from .. import AffineStitcher, Stitcher, __version__
 from .. import io as _io
-from ..errors import StitchingError
 from ..blender import Blender
 from ..camera_adjuster import CameraAdjuster
 from ..camera_estimator import CameraEstimator
@@ -166,8 +168,8 @@ def create_parser():
         help="Don't crop black borders around images caused by warping.")
     parser.add_argument(
         "--preview", action="store_true",
-        help="Show a preview of the panorama (not available: this "
-             "package has no GUI).")
+        help="Show a preview of the panorama (this package has no GUI: "
+             "the panorama is written to --output and a notice printed).")
     parser.add_argument(
         "--output", default="result.jpg",
         help="Name of the output file.")
@@ -179,10 +181,6 @@ def create_parser():
 
 def main(device="cuda"):
     opts = vars(create_parser().parse_args())
-    if opts["preview"]:
-        raise StitchingError(
-            "--preview is not available: stitching_tpu_torch has no GUI; "
-            "open the --output file instead")
 
     img_names = Images.resolve_wildcards(opts.pop("images"))
     feature_masks = Images.resolve_wildcards(opts.pop("feature_masks"))
@@ -212,6 +210,8 @@ def main(device="cuda"):
     if panorama is not None:
         _io.write_image(io_opts["output"], panorama,
                         io_opts["output_params"])
+        if io_opts["preview"]:
+            print("preview unavailable (no GUI backend)", file=sys.stderr)
 
 
 if __name__ == "__main__":

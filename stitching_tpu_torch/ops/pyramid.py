@@ -2,8 +2,8 @@
 
 Port of `stitching_tpu/ops/pyramid.py`, the building blocks of the
 multi-band blend (`compose._mb_feed_one`). The 5-tap binomial kernel
-[1, 4, 6, 4, 1] / 16 runs as two separable polyphase passes of shifted
-adds, each sum in the reference's order:
+`KERNEL5` = [1, 4, 6, 4, 1] / 16 runs as two separable polyphase passes of
+shifted adds, each sum in the reference's order:
 
     down: (e[j-1] + 6 e[j] + e[j+1] + 4 o[j-1] + 4 o[j]) / 16
     up:   even 0.125 v[i-1] + 0.75 v[i] + 0.125 v[i+1], odd 0.5 (v[i] + v[i+1])
@@ -12,7 +12,15 @@ No convolution library call: it would reorder the sums, and cuDNN may use
 TF32. Images are (..., H, W, C) float32; H and W are axes -3 and -2.
 """
 
+import numpy as np
 import torch
+
+KERNEL5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+# the passes' weights, exact in float32: down sums the taps in units of the
+# outer one (1, 4, 6) and divides by 16 once; up applies twice the kernel
+_DOWN = [float(t) for t in KERNEL5 / KERNEL5[0]]
+_DOWN_NORM = float(1.0 / KERNEL5[0])
+_UP = [float(t) for t in 2.0 * KERNEL5]
 
 
 def _take(v, axis, sl):
@@ -48,9 +56,9 @@ def _down_axis(v, axis):
     e, o = vv.select(axis + 1, 0), vv.select(axis + 1, 1)
     ep = _pad1(e, axis, left_reflect=True, right_reflect=False)
     op = _pad1(o, axis, left_reflect=False, right_reflect=False)
-    return (_shift(ep, axis, 0, n) + 6.0 * _shift(ep, axis, 1, n)
-            + _shift(ep, axis, 2, n) + 4.0 * _shift(op, axis, 0, n)
-            + 4.0 * _shift(op, axis, 1, n)) / 16.0
+    return (_shift(ep, axis, 0, n) + _DOWN[2] * _shift(ep, axis, 1, n)
+            + _shift(ep, axis, 2, n) + _DOWN[1] * _shift(op, axis, 0, n)
+            + _DOWN[3] * _shift(op, axis, 1, n)) / _DOWN_NORM
 
 
 def pyr_down(img):
@@ -62,9 +70,9 @@ def _up_axis(v, axis):
     axis %= v.ndim
     n = v.shape[axis]
     vp = _pad1(v, axis, left_reflect=True, right_reflect=False)
-    even = (0.125 * _shift(vp, axis, 0, n) + 0.75 * _shift(vp, axis, 1, n)
-            + 0.125 * _shift(vp, axis, 2, n))
-    odd = 0.5 * (_shift(vp, axis, 1, n) + _shift(vp, axis, 2, n))
+    even = (_UP[0] * _shift(vp, axis, 0, n) + _UP[2] * _shift(vp, axis, 1, n)
+            + _UP[4] * _shift(vp, axis, 2, n))
+    odd = _UP[1] * (_shift(vp, axis, 1, n) + _shift(vp, axis, 2, n))
     # interleave: stack on a new axis just after `axis`, then merge the two
     st = torch.stack([even, odd], dim=axis + 1)
     shp = list(v.shape)

@@ -3,14 +3,15 @@ homography and the 4-DoF similarity (partial affine) models.
 
 Port of `stitching_tpu/ops/ransac.py`'s `ransac_homography` and
 `ransac_affine_partial` (which the JAX matcher vmaps over pairs; here the
-pair axis P is written out). A static batch of 512 minimal samples per pair
-is drawn at once, all minimal systems are solved batched (8x8 solves for
-the homography, the closed form for the similarity), every hypothesis is
+pair axis P is written out). A static batch of K minimal samples per
+pair (K = 512; the homography takes another K as `n_iters`) is drawn at
+once, all minimal systems are solved batched (8x8 solves for the
+homography, the closed form for the similarity), every hypothesis is
 scored against every point as one (P, K, M) tensor, and the best by inlier
 count is refined by 2 reweighted least-squares passes on its inliers.
 
 The minimal samples are the top-4 (homography) or top-2 (similarity) of
-`jax.random.uniform(PRNGKey(seed), (512, M))`; `threefry_uniform`
+`jax.random.uniform(PRNGKey(seed), (K, M))`; `threefry_uniform`
 reproduces that draw bit for bit (threefry 2x32 over a partitionable 64-bit
 iota, as JAX draws it), so the port picks the same hypotheses as the
 reference.
@@ -148,11 +149,11 @@ def _compact(src, dst, valid):
     return order, src_c, dst_c, torch.gather(valid, 1, order)
 
 
-def _minimal_samples(seeds, nvalid, M, k, dev):
+def _minimal_samples(seeds, nvalid, M, k, dev, n_iters=N_HYPOTHESES):
     """Duplicate-free minimal samples: the top-k of per-hypothesis noise
     restricted to the compacted valid prefix, ties to the lower index as
-    `lax.top_k` takes them. Returns (P, K, k) indices."""
-    noise = threefry_uniform(seeds, (N_HYPOTHESES, M), device=dev)
+    `lax.top_k` takes them. Returns (P, n_iters, k) indices."""
+    noise = threefry_uniform(seeds, (n_iters, M), device=dev)
     cols = torch.arange(M, device=dev)
     noise = torch.where(cols[None, None, :] < nvalid[:, None, None],
                         noise, -1.0)
@@ -167,10 +168,11 @@ def _take(pts, idx):
     return g.reshape(*idx.shape, 2)
 
 
-def ransac_homography(src, dst, valid, seeds):
+def ransac_homography(src, dst, valid, seeds, *, n_iters=N_HYPOTHESES):
     """RANSAC homography fit for P pairs at once.
 
-    Args: src, dst (P, M, 2) float32; valid (P, M) bool; seeds (P,) uint32.
+    Args: src, dst (P, M, 2) float32; valid (P, M) bool; seeds (P,) uint32;
+    n_iters: hypotheses drawn per pair.
     Returns dict(H (P,3,3) f32 src->dst, inliers (P,M) bool,
                  num_inliers (P,) int32, ok (P,) bool).
     """
@@ -182,7 +184,7 @@ def ransac_homography(src, dst, valid, seeds):
     Ts, src_n = _normalize_points(src_c, valid_c)
     Td, dst_n = _normalize_points(dst_c, valid_c)
 
-    idx = _minimal_samples(seeds, nvalid, M, 4, dev)             # (P, K, 4)
+    idx = _minimal_samples(seeds, nvalid, M, 4, dev, n_iters)    # (P, K, 4)
     s4, d4 = _take(src_n, idx), _take(dst_n, idx)
     scale_s = Ts[:, 0, 0]
     scale_d = Td[:, 0, 0]

@@ -37,7 +37,8 @@ from .ops.akaze import detect_akaze
 from .ops.brisk import detect_brisk
 from .ops.orb import detect_orb
 from .ops.sift import detect_sift
-from .ops.ransac import ransac_affine_partial, ransac_homography
+from .ops.ransac import (N_HYPOTHESES, ransac_affine_partial,
+                         ransac_homography)
 from .parallel.mesh import all_gather_leading, shard_leading
 
 _BUCKET = 64
@@ -75,6 +76,14 @@ class RankBlock:
         """Index of this rank's first entry (0 without a mesh)."""
         return 0 if self.mesh is None else self.mesh.block(self.batch)[0]
 
+    def _row(self, i):
+        """Row of entry i in `data`; IndexError unless this rank holds i."""
+        lo = self.lo
+        if not lo <= i < lo + self.data.shape[0]:
+            raise IndexError(f"entry {i} is not in this rank's block "
+                             f"[{lo}, {lo + self.data.shape[0]})")
+        return i - lo
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceStack(RankBlock):
@@ -100,8 +109,9 @@ class DeviceStack(RankBlock):
     def image(self, i):
         """Host copy of image i, cropped to its true size (float32); under
         a mesh, one of this rank's block."""
+        row = self._row(i)
         w, h = self.sizes[i]
-        return self.data[i - self.lo, :h, :w].cpu().numpy()
+        return self.data[row, :h, :w].cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -366,22 +376,23 @@ def match_stack(feats, img_sizes, **kwargs):
 # One pair of frames
 # ---------------------------------------------------------------------------
 
-def register_pair(img_a, img_b, *, nfeatures=256, device="cuda"):
+def register_pair(img_a, img_b, *, nfeatures=256, n_iters=N_HYPOTHESES,
+                  device="cuda"):
     """Register two frames: ORB detection, `match_pair` (the per-pair 2-NN
     kernel in both directions, ratio confidence 0.3) and the RANSAC
-    homography (seed 0), in uncentered pixel coordinates. Counterpart of
-    the reference's per-pair entry (detect_orb -> match_pair ->
-    ransac_homography).
+    homography (seed 0, `n_iters` hypotheses), in uncentered pixel
+    coordinates. Counterpart of the reference's per-pair entry (detect_orb
+    -> match_pair -> ransac_homography; the entry draws 128 hypotheses).
 
     img_a, img_b: (H, W) gray or (H, W, 3) BGR arrays in [0, 255]. Returns
     (H (3, 3) float32 tensor mapping a's pixels to b's, num_inliers int
     tensor), both on `device`.
     """
     with no_tf32():
-        return _register_pair(img_a, img_b, nfeatures, device)
+        return _register_pair(img_a, img_b, nfeatures, n_iters, device)
 
 
-def _register_pair(img_a, img_b, nfeatures, device):
+def _register_pair(img_a, img_b, nfeatures, n_iters, device):
     feats = []
     for img in (img_a, img_b):
         plane = torch.as_tensor(np.array(img, np.float32), device=device)
@@ -396,5 +407,6 @@ def _register_pair(img_a, img_b, nfeatures, device):
     src = fa["xy"][pairs[:, 0]]
     dst = fb["xy"][pairs[:, 1]]
     seeds = torch.zeros(1, dtype=torch.int64, device=src.device)
-    r = ransac_homography(src[None], dst[None], m["valid"][None], seeds)
+    r = ransac_homography(src[None], dst[None], m["valid"][None], seeds,
+                          n_iters=n_iters)
     return r["H"][0], r["num_inliers"][0]

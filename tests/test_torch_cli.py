@@ -2,7 +2,8 @@
 
 The parser: every action equals the JAX parser's in option strings, dest,
 default and choices (`--verbose_dir`'s default is a timestamp and help
-texts may differ). `--preview` raises: the port has no GUI. `main(device=
+texts may differ). `--preview` writes the panorama of the run without it
+and prints the JAX CLI's no-GUI notice on stderr. `main(device=
 "cpu")` with `--affine --no-crop` on `affine_set(n=2)` writes a panorama
 whose array equals `AffineStitcher(device="cpu", crop=False).stitch` on
 the same files (with `-v`, its `stitch_verbose`, and the same artifacts);
@@ -83,11 +84,25 @@ def run_main(argv):
         cli.main(device="cpu")
 
 
-def test_preview_raises(files):
-    d, paths, _ = files
-    with pytest.raises(StitchingError, match="--preview"):
-        run_main(paths + ["--preview", "--output", str(d / "p.png")])
-    assert not os.path.exists(d / "p.png")
+def test_preview_raises(files, capsys):
+    """`--preview` raises nothing: as the JAX CLI does on a host without
+    cv2 (the card host has none), it writes the panorama of the run
+    without the flag, then prints the JAX CLI's notice on stderr."""
+    d, paths, want = files
+    argv = paths + ["--affine", "--no-crop", "--preview", "--output"]
+    capsys.readouterr()
+    run_main(argv + [str(d / "p.png")])
+    got_err = capsys.readouterr().err
+    got = port_io.read_image(str(d / "p.png"))
+    assert got.shape == want.shape and np.array_equal(got, want)
+    with mock.patch.dict(sys.modules, {"cv2": None}), \
+            mock.patch.object(sys, "argv",
+                              ["stitch"] + argv + [str(d / "p_jax.png")]):
+        jax_cli.main()
+    want_err = capsys.readouterr().err
+    assert os.path.exists(d / "p_jax.png")
+    assert "preview unavailable (no GUI backend)" in want_err
+    assert got_err == want_err
 
 
 @pytest.mark.parametrize("verbose", [False, True])

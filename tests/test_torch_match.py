@@ -86,19 +86,31 @@ def test_match_pair_all_targets_invalid_matches_nothing():
     assert not valid.any()
 
 
-def test_register_pair_matches_graft_entry():
-    """The pair path on the entry's two crops (an 80 px horizontal shift).
-    The reference's entry draws 128 hypotheses and the port its library
-    default of 512, and ORB's descriptors differ in a few rows (ROADMAP
-    queue 3), so the inlier counts agree to 10% and both homographies
-    recover the shift to a pixel."""
+@pytest.fixture(scope="module")
+def graft_entry():
+    """`__graft_entry__.entry`'s crops and its result (128 draws)."""
     fn, (a, b) = graft.entry()
     H_ref, n_ref = [np.asarray(x) for x in jax.jit(fn)(a, b)]
-    H, n = pipeline.register_pair(np.asarray(a), np.asarray(b),
-                                  nfeatures=256, device="cpu")
+    return np.asarray(a), np.asarray(b), H_ref, int(n_ref)
+
+
+@pytest.mark.parametrize("n_iters", [128, 512])
+def test_register_pair_matches_graft_entry(graft_entry, n_iters):
+    """The pair path on the entry's two crops (an 80 px horizontal shift).
+    At the entry's 128 draws the inlier count equals the entry's and H is
+    within 2e-4 elementwise (1.1e-4 measured: ORB's descriptors differ in
+    a few rows, ROADMAP's stated gaps). At the library default of 512
+    draws the counts agree to 10%. Both homographies recover the shift to
+    a pixel."""
+    a, b, H_ref, n_ref = graft_entry
+    H, n = pipeline.register_pair(a, b, nfeatures=256, n_iters=n_iters,
+                                  device="cpu")
     H, n = H.numpy(), int(n)
     assert H.shape == (3, 3) and H.dtype == np.float32
-    assert n >= 20 and abs(n - int(n_ref)) <= max(3, 0.1 * int(n_ref))
+    if n_iters == 128:
+        assert n == n_ref
+        np.testing.assert_allclose(H, H_ref, rtol=0, atol=2e-4)
+    assert n >= 20 and abs(n - n_ref) <= max(3, 0.1 * n_ref)
     for h in (H, H_ref):
         assert abs(h[0, 2] + 80.0) < 1.0 and abs(h[1, 2]) < 1.0
         np.testing.assert_allclose(h[:2, :2], np.eye(2), atol=0.01)

@@ -1,7 +1,8 @@
 """RANSAC of the port against `stitching_tpu.ops.ransac`.
 
 The hypotheses are the top-4 of `jax.random.uniform(PRNGKey(seed),
-(512, M))`, so the port reproduces that draw bit for bit without JAX.
+(n_iters, M))`, 512 draws unless the caller asks for another count, so
+the port reproduces that draw bit for bit without JAX.
 """
 
 import numpy as np
@@ -14,12 +15,27 @@ import jax.numpy as jnp
 from stitching_tpu.ops.ransac import ransac_homography as ransac_jax
 from stitching_tpu_torch.ops.ransac import ransac_homography, threefry_uniform
 
+# The suite's workers run side by side on a few cores: keep each one's
+# intra-op pool small, or the pools spin against each other.
+torch.set_num_threads(2)
+
 
 @pytest.mark.parametrize("seed", [0, 1, 57, 12345, 2**32 - 1])
 def test_threefry_uniform_equals_jax_random(seed):
     ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (512, 300)))
     got = threefry_uniform([seed], (512, 300))[0].numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def test_threefry_uniform_128_draws_equals_jax_random():
+    """The pair path's draw (`__graft_entry__.entry` asks for 128), several
+    seeds in one batched call."""
+    seeds = [0, 1, 57, 12345, 2**32 - 1]
+    got = threefry_uniform(seeds, (128, 257)).numpy()
+    for k, seed in enumerate(seeds):
+        ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed),
+                                            (128, 257)))
+        np.testing.assert_array_equal(got[k], ref)
 
 
 def _point_sets(n_pairs=4, m=120, seed=0):
@@ -63,3 +79,30 @@ def test_ransac_homography_matches_jax():
         assert int(got["num_inliers"][p]) == int(ref["num_inliers"])
         H = got["H"][p].numpy()
         assert np.abs(H - ref["H"]).max() <= 1e-4 * np.abs(ref["H"]).max()
+
+
+def test_ransac_128_draws_matches_jax():
+    """`n_iters=128` (the pair path's count) against the JAX function at
+    the same count: ok, inliers and counts equal, H within 1e-4 of its
+    largest entry."""
+    src, dst, valid = _point_sets()
+    seeds = np.arange(3, 3 + 2 * len(src), 2).astype(np.uint32)
+    got = ransac_homography(torch.as_tensor(src), torch.as_tensor(dst),
+                            torch.as_tensor(valid),
+                            torch.as_tensor(seeds.astype(np.int64)),
+                            n_iters=128)
+    n_ok = 0
+    for p in range(len(seeds)):
+        ref = {k: np.asarray(v) for k, v in ransac_jax(
+            jnp.asarray(src[p]), jnp.asarray(dst[p]), jnp.asarray(valid[p]),
+            jnp.uint32(seeds[p]), n_iters=128).items()}
+        assert bool(got["ok"][p]) == bool(ref["ok"])
+        np.testing.assert_array_equal(got["inliers"][p].numpy(),
+                                      ref["inliers"])
+        assert int(got["num_inliers"][p]) == int(ref["num_inliers"])
+        if not ref["ok"]:
+            continue
+        n_ok += 1
+        H = got["H"][p].numpy()
+        assert np.abs(H - ref["H"]).max() <= 1e-4 * np.abs(ref["H"]).max()
+    assert n_ok >= 3
