@@ -10,12 +10,14 @@ the per-image crops at a resolution aspect.
 Rect algebra lives in module functions over a minimal `Rectangle` value
 type, on the host. The engine calls `prepare_from_mask` with the panorama
 mask it composited on the device and applies the rects with
-`compose.slice_stack`. The step-by-step API plans from host lists:
-`prepare` composites the panorama mask on the cropper's device
-(`estimate_panorama_mask`, `Blender.create_panorama`), `crop_images` /
-`crop_img` slice host arrays, `Rectangle.draw_on` draws the LIR, and the
-reference's static aliases (`get_zero_center_corners`, `get_rectangles`,
-`get_overlap`, `get_intersection`) remain.
+`compose.slice_stack`; the flood fill (the mask's copy to the host
+included) and the LIR search are timed as the stages
+`low/crop/flood_fill` and `low/crop/lir`. The step-by-step API plans
+from host lists: `prepare` composites the panorama mask on the
+cropper's device (`estimate_panorama_mask`, `Blender.create_panorama`),
+`crop_images` / `crop_img` slice host arrays, `Rectangle.draw_on` draws
+the LIR, and the reference's static aliases (`get_zero_center_corners`,
+`get_rectangles`, `get_overlap`, `get_intersection`) remain.
 """
 
 from collections import namedtuple
@@ -23,6 +25,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from . import profiling as prof
 from .errors import StitchingError
 from .ops.lir import largest_interior_rectangle
 
@@ -103,7 +106,9 @@ def zero_center(corners):
 def single_region(mask):
     """The flood-filled foreground region iff the mask is one
     simply-connected blob; None otherwise (the reference asserts exactly
-    one outer contour, cropper.py:95-99)."""
+    one outer contour, cropper.py:95-99). The region grows by one
+    dilation a round until a round adds nothing; the call's rounds go to
+    the `crop/flood_rounds` counter."""
     m = np.asarray(mask) > 0
     if not m.any():
         return None
@@ -111,7 +116,9 @@ def single_region(mask):
     seed = np.argwhere(m)[0]
     region[seed[0], seed[1]] = True
     count = 0
+    rounds = 0
     while True:
+        rounds += 1
         grown = region.copy()
         grown[1:, :] |= region[:-1, :]
         grown[:-1, :] |= region[1:, :]
@@ -122,6 +129,7 @@ def single_region(mask):
         if c == count:
             break
         count = c
+    prof.count("crop/flood_rounds", rounds)
     return region if bool((region == m).all()) else None
 
 
@@ -171,9 +179,12 @@ class Cropper:
 
     def estimate_largest_interior_rectangle(self, mask):
         mask = torch.as_tensor(mask)
-        if single_region(mask.cpu().numpy()) is None:
+        with prof.stage_timer("low/crop/flood_fill"):
+            region = single_region(mask.cpu().numpy())
+        if region is None:
             raise StitchingError(_INVALID_CONTOUR)
-        x, y, w, h = largest_interior_rectangle(mask > 0).tolist()
+        with prof.stage_timer("low/crop/lir"):
+            x, y, w, h = largest_interior_rectangle(mask > 0).tolist()
         return Rectangle(int(x), int(y), int(w), int(h))
 
     # -- application ---------------------------------------------------------

@@ -5,7 +5,11 @@ drives `run` (and `stitch_device` drives `run_device`), which is
 register -> plan_composition -> composite, each a function over explicit
 dataclasses (`Registration`, `CompositionPlan`) and stacks that stay on
 the card. The stages are named for `profiling.stage_timer` as in the
-reference.
+reference; the port splits two of them further, `low/crop` into
+`low/crop/paste`, `/flood_fill`, `/lir` and `/slice`, and each image of
+`final/stream` into `final/upload_wait`, `final/stream/warp` and
+`final/stream/feed`; `composite/stream_budget` times the streamed
+branch's budget check, between the two passes.
 
 Registration keeps the reference's three branches (a mesh always takes
 the sync one):
@@ -347,12 +351,15 @@ def plan_composition(st, reg: Registration) -> CompositionPlan:
         prof.fence(low.data, low.masks)
     with prof.stage_timer("low/crop"):
         if st.cropper.do_crop:
-            _, pano_mask = blend_stack(low, None, "no", 0,
-                                       budget=compose.BLEND_BUDGET_BYTES)
+            with prof.stage_timer("low/crop/paste"):
+                _, pano_mask = blend_stack(low, None, "no", 0,
+                                           budget=compose.BLEND_BUDGET_BYTES)
+                prof.fence(pano_mask)
             st.cropper.prepare_from_mask(
                 pano_mask, [tuple(c) for c in low.corners],
                 [tuple(s) for s in low.sizes])
-            low = _crop_tiles(low, st.cropper, 1)
+            with prof.stage_timer("low/crop/slice"):
+                low = _crop_tiles(low, st.cropper, 1)
         lir_aspect = reg.images.get_ratio(Resolution.LOW, Resolution.FINAL)
         if low.mesh is not None:
             full = gather_tiles(low)
@@ -377,19 +384,24 @@ def _stream_fits_budget(st, reg):
     The estimate counts what `StreamComposite` allocates (the level sum of
     the pyramid-aligned canvas from `_plan_blend`, the true channel count)
     on the uncropped ROIs: equal to the streamed plan without crop, a
-    slight over-estimate with it (the safe direction)."""
-    sizes, Ks, Rs, scale = _geometry(reg, Resolution.FINAL)
-    corners, dsizes = plan_warp_rois([tuple(map(int, s)) for s in sizes],
-                                     Ks, Rs, scale, st.warper.warper_type)
-    th = _round_up(int(dsizes[:, 1].max()))
-    tw = _round_up(int(dsizes[:, 0].max()))
-    p = _plan_blend(corners, dsizes, len(dsizes), st.blender.blender_type,
-                    st.blender.blend_strength, th, tw)
-    C = reg.uploader.channels
-    levels = p["nb"] + 1 if p["kind"] == "multiband" else 1
-    acc_bytes = sum((p["ph"] >> lv) * (p["pw"] >> lv) * (C + 1) * 4
-                    for lv in range(levels))
-    return acc_bytes <= compose.BLEND_BUDGET_BYTES
+    slight over-estimate with it (the safe direction). It is host work
+    between the LOW pass and the FINAL one, timed as a stage of its own
+    outside the `final/` stages: `composite/stream_budget`."""
+    with prof.stage_timer("composite/stream_budget"):
+        sizes, Ks, Rs, scale = _geometry(reg, Resolution.FINAL)
+        corners, dsizes = plan_warp_rois(
+            [tuple(map(int, s)) for s in sizes], Ks, Rs, scale,
+            st.warper.warper_type)
+        th = _round_up(int(dsizes[:, 1].max()))
+        tw = _round_up(int(dsizes[:, 0].max()))
+        p = _plan_blend(corners, dsizes, len(dsizes),
+                        st.blender.blender_type, st.blender.blend_strength,
+                        th, tw)
+        C = reg.uploader.channels
+        levels = p["nb"] + 1 if p["kind"] == "multiband" else 1
+        acc_bytes = sum((p["ph"] >> lv) * (p["pw"] >> lv) * (C + 1) * 4
+                        for lv in range(levels))
+        return acc_bytes <= compose.BLEND_BUDGET_BYTES
 
 
 def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
@@ -503,22 +515,27 @@ def _composite_streamed(st, reg: Registration, plan: CompositionPlan):
         for i in range(n):
             with prof.stage_timer("final/upload_wait"):
                 raw = up.image(i)
-            tile, mask = warp_single(raw, sizes[i], Ks[i], Rs[i], corners[i],
-                                     dsizes[i], scale, wt, th, tw,
-                                     channels=C)
-            if crop:
-                tile, mask = slice_tiles(tile, mask, rects[i:i + 1], *cshape)
-            if gain_mode == "scalar":
-                tile = _gain_mul_kernel(tile, gains[i:i + 1])
-            elif gain_mode == "map":
-                tile = _gain_map_kernel(tile, *[g[i:i + 1] for g in gmaps])
-            seam = _seam_resize_kernel(lo[i:i + 1], lsz[i:i + 1], mask,
-                                       fsz[i:i + 1])
-            stream.feed(i, tile[0], seam[0])
+            with prof.stage_timer("final/stream/warp"):
+                tile, mask = warp_single(raw, sizes[i], Ks[i], Rs[i],
+                                         corners[i], dsizes[i], scale, wt,
+                                         th, tw, channels=C)
+                if crop:
+                    tile, mask = slice_tiles(tile, mask, rects[i:i + 1],
+                                             *cshape)
+                if gain_mode == "scalar":
+                    tile = _gain_mul_kernel(tile, gains[i:i + 1])
+                elif gain_mode == "map":
+                    tile = _gain_map_kernel(tile,
+                                            *[g[i:i + 1] for g in gmaps])
+                seam = _seam_resize_kernel(lo[i:i + 1], lsz[i:i + 1], mask,
+                                           fsz[i:i + 1])
+                prof.fence(tile, seam)
+            with prof.stage_timer("final/stream/feed"):
+                stream.feed(i, tile[0], seam[0])
+                prof.fence(stream.state)
         # the originals have no further consumers
         reg.uploader = None
         reg.low_stack = None
-        prof.fence(stream.state)
     with prof.stage_timer("final/blend"):
         pano, _ = stream.finish(stream_fetch=True)
     return pano

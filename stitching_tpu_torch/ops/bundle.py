@@ -29,6 +29,7 @@ reference.
 import numpy as np
 import torch
 
+from .. import profiling as prof
 from ..parallel.mesh import all_reduce_sum, shard_leading
 from .rotation import rodrigues_to_matrix
 
@@ -120,7 +121,10 @@ def _lm_engine(x0, residual, max_iters, reduce=None):
 
     `reduce` sums a flat tensor over the ranks of a mesh (None: one
     process): the normal system and the costs are reduced before any use,
-    so every rank takes the same decisions."""
+    so every rank takes the same decisions.
+
+    The trial steps taken, accepted or rejected, go to the
+    `bundle/iterations` counter once the loop ends: one host read each."""
     jac = torch.func.jacfwd(residual)
     k = x0.numel()
 
@@ -138,7 +142,9 @@ def _lm_engine(x0, residual, max_iters, reduce=None):
     cost = flat[-1]
     lam = 1e-3
     rejects = 0
+    steps = 0
     for _ in range(max_iters):
+        steps += 1
         D = torch.diagonal(A).clamp_min(1e-12)
         dsqrt = torch.sqrt(D)
         M = (A + lam * torch.diag(D)) / dsqrt[:, None] / dsqrt[None, :]
@@ -163,6 +169,7 @@ def _lm_engine(x0, residual, max_iters, reduce=None):
             rejects += 1
             if rejects >= 8:
                 break
+    prof.count("bundle/iterations", steps)
     return x, cost
 
 

@@ -196,11 +196,16 @@ def test_profiler_stage_names(images):
             "registration/match", "registration/subset",
             "registration/estimate", "registration/bundle_adjust",
             "registration/wave_correct", "low/warp", "low/crop",
-            "low/exposure_feed", "low/seam_find", "final/plan",
-            "final/stream", "final/upload_wait", "final/blend",
+            "low/crop/paste", "low/crop/flood_fill", "low/crop/lir",
+            "low/crop/slice", "low/exposure_feed", "low/seam_find",
+            "composite/stream_budget", "final/plan", "final/stream",
+            "final/upload_wait", "final/stream/warp", "final/stream/feed",
+            "final/blend",
             "transfer/originals_stream"} <= set(report)
     assert "final/warp" not in report     # the batched pass did not run
     assert report["final/upload_wait"]["calls"] == 3
+    assert report["final/stream/warp"]["calls"] == 3
+    assert report["final/stream/feed"]["calls"] == 3
     assert all(v["total_s"] >= 0 for v in report.values())
     Stitcher(device="cpu", crop=False).stitch(images)
     assert profiling.get_report() == {}
