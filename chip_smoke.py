@@ -76,7 +76,10 @@
    on one MEDIUM view against the port's own CPU run;
 5. holds each kernel against its plain PyTorch version on the very inputs
    the paths gave it (the sampler at the batched LOW and the per-image
-   FINAL calls), and times kernel, plain version and, where one exists, a
+   FINAL calls; the region count on every LOW panorama mask a path with
+   the crop on planned from, also against the host flood fill it
+   replaces), and times kernel, plain version (for the region count: the
+   host flood fill, on the host's clock) and, where one exists, a
    PyTorch library call computing the same function (device time per
    call from a CUDA graph replay; the kernel wrapper's CUDA-event time,
    host launch included, beside it), and the launch floor: an empty
@@ -287,12 +290,25 @@ def times_text(t):
                     for k, v in t.items())
 
 
-def kernel_times(kernel, plain, launches, library=None, iters=20):
+def host_ms(fn, iters):
+    """Mean milliseconds per call of `fn` on the host's clock (warmed up);
+    for a plain version that runs on the host."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def kernel_times(kernel, plain, launches, library=None, iters=20,
+                 plain_on_host=False):
     """ms, plain_ms and library_ms of one function on the same inputs,
-    each from a CUDA graph replay; call_ms is the CUDA-event time of
-    back-to-back calls of the kernel's wrapper, host launch included;
-    floor_ms is the graph-replay time of an empty kernel launched
-    `launches` times, as often as one call of `kernel` launches kernels."""
+    each from a CUDA graph replay (plain_ms on the host's clock where the
+    plain version runs on the host: `plain_on_host`); call_ms is the
+    CUDA-event time of back-to-back calls of the kernel's wrapper, host
+    launch included; floor_ms is the graph-replay time of an empty kernel
+    launched `launches` times, as often as one call of `kernel` launches
+    kernels."""
     from stitching_tpu_torch.ops import kernels
 
     empty = kernels.load("launch_floor")
@@ -304,7 +320,8 @@ def kernel_times(kernel, plain, launches, library=None, iters=20):
                 lambda: kernels.check(empty(launches,
                                             kernels.stream_ptr(dev)),
                                       "launch_floor"), iters),
-            "plain_ms": graph_ms(plain, max(iters // 4, 3)),
+            "plain_ms": (host_ms if plain_on_host else graph_ms)(
+                plain, max(iters // 4, 3)),
             "library_ms": None if library is None else graph_ms(library,
                                                                 iters)}
 
@@ -560,6 +577,63 @@ def check_sampler(calls, timed):
           f"bytes={both['bytes'] * 1e3:.2f} "
           f"ops={both['operations'] * 1e3:.2f}", flush=True)
     return dict(max_abs_err=max(errs), **bound, **times)
+
+
+def check_components(by_path, timed):
+    """`count_components` on every LOW panorama mask the paths handed it:
+    its count against the plain version's and against the host flood fill
+    (`single_region` on the mask moved to the host: one region exactly when
+    the count is 1). Timed at the masks of the paths in `timed` (the
+    default path's has the 12 MP cell's LOW shape, the scan's the scan
+    cell's); the plain time is the host flood fill's, the loop the card
+    path replaces. No PyTorch call counts regions: no library column."""
+    from stitching_tpu_torch import cropper
+    from stitching_tpu_torch.ops.kernels.components import (
+        LAUNCHES, count_components, count_components_plain)
+
+    n_masks = 0
+    for path, calls in by_path.items():
+        for (mask,), _ in calls:
+            n = int(count_components(mask))
+            torch.cuda.synchronize()
+            host = mask.cpu()
+            plain = int(count_components_plain(host))
+            flood = cropper.single_region(host.numpy()) is not None
+            if n != plain or flood != (n == 1):
+                raise AssertionError(
+                    f"count_components on the {path} path's mask "
+                    f"{tuple(mask.shape)}: {n} regions, plain {plain}, "
+                    f"host flood fill one region: {flood}")
+            n_masks += 1
+    if not n_masks:
+        raise AssertionError("count_components was not called on any path")
+    print(f"count_components: {n_masks} LOW masks of {len(by_path)} paths "
+          "equal to plain and to the host flood fill", flush=True)
+    rows = {}
+    for path in timed:
+        (mask,), _ = by_path[path][-1]
+        h, w = mask.shape
+        host = mask.cpu().numpy()
+
+        def kernel():
+            return count_components(mask)
+
+        times = kernel_times(
+            kernel, lambda: cropper.single_region(host),
+            launched_kernels(kernel, LAUNCHES, "count_components"),
+            iters=50, plain_on_host=True)
+        # the mask read once, the int32 parents written once and read once
+        nbytes = 9.0 * h * w
+        bound, both = bounds_of(nbytes, 0.0, FP32_FLOPS_PER_S)
+        print(f"count_components timing at the {path} path's LOW mask "
+              f"{h}x{w}: {times_text(times)} (plain: the host flood fill; "
+              f"no library call) bound_us bytes={both['bytes'] * 1e3:.2f}",
+              flush=True)
+        rows[path] = dict(shape=[h, w], **bound, **times)
+    # the table's row: the largest mask
+    path = max(rows, key=lambda p: rows[p]["shape"][0] * rows[p]["shape"][1])
+    return dict(max_abs_err=0.0, timed_at=path, by_shape=rows,
+                **{k: v for k, v in rows[path].items() if k != "shape"})
 
 
 # pairs of columns holding the same target row: one thread's two columns
@@ -1504,8 +1578,8 @@ def detection_phase(view, dev):
 def counted_run(name, fn, wrappers, expect, recorders=()):
     """Drive one path: once to warm up, then with every kernel's launch
     count set to 0 (and the recorders emptied) just before and read just
-    after. Fails unless the counts equal `expect`. Returns (result, wall
-    seconds, counts)."""
+    after. Fails unless the counts of the wrappers in `expect` equal it.
+    Returns (result, wall seconds, counts)."""
     fn()
     torch.cuda.synchronize()
     for r in recorders:
@@ -1518,7 +1592,7 @@ def counted_run(name, fn, wrappers, expect, recorders=()):
     wall = time.time() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
     print(f"{name}: wall_s={wall:.4f} launches={counts}", flush=True)
-    if counts != expect:
+    if {k: counts[k] for k in expect} != expect:
         raise AssertionError(f"{name}: kernel launches {counts}, expected "
                              f"{expect}")
     return out, wall, counts
@@ -1780,13 +1854,14 @@ def main():
               "GPU", file=sys.stderr)
         return 2
     from stitching_tpu_torch import (SLICE, SLICE2, AffineStitcher, Stitcher,
-                                     compose, engine, pipeline)
+                                     compose, cropper, engine, pipeline)
     from stitching_tpu_torch.ops.warp import WARP_TYPES
     from stitching_tpu_torch.feature_matcher import FeatureMatcher
     from stitching_tpu_torch.images import Images
     from stitching_tpu_torch.ops import kernels, match
     from stitching_tpu_torch.ops.kernels.bilinear_sample import (
         bilinear_sample)
+    from stitching_tpu_torch.ops.kernels.components import count_components
     from stitching_tpu_torch.ops.kernels.two_nn import two_nn, two_nn_pairs
 
     t_start = time.time()
@@ -1817,7 +1892,13 @@ def main():
 
     # every kernel wrapper, with its inputs recorded at its call sites
     wrappers = {"two_nn_pairs": two_nn_pairs, "two_nn": two_nn,
-                "bilinear_sample": bilinear_sample}
+                "bilinear_sample": bilinear_sample,
+                "count_components": count_components}
+    # the crop planner's region counts, kept per path (a path's launch
+    # expectations leave them out: they follow where the crop is on)
+    rec_cc = Recorder(cropper.count_components)
+    cropper.count_components = rec_cc
+    cc_calls = {}
     rec_pairs = Recorder(pipeline.two_nn_pairs)
     rec_rows = Recorder(match.two_nn)
     rec_bs = Recorder(compose.bilinear_sample)
@@ -1828,8 +1909,11 @@ def main():
     launches = {}
 
     def drive(name, fn, expect):
+        rec_cc.calls.clear()
         out, wall, counts = counted_run(name, fn, wrappers, expect, recs)
         launches[name] = counts
+        if rec_cc.calls:
+            cc_calls[name] = list(rec_cc.calls)
         return out, wall, [list(r.calls) for r in recs]
 
     # ---- path 1: the first slice -------------------------------------
@@ -2330,6 +2414,8 @@ def main():
         "bilinear_sample": check_sampler(
             bs_calls + bs_calls2 + bs_calls3 + new_bs + det_bs + bs_cli
             + bs_m, bs_calls + bs_calls2 + bs_calls3),
+        "count_components": check_components(cc_calls,
+                                             ("default", "affine")),
     }
     stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
     paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
@@ -2345,7 +2431,9 @@ def main():
              "two_nn (float)": ("two_nn", ("float_match",)),
              "bilinear_sample": ("bilinear_sample",
                                  stitches + tuple(det_calls)
-                                 + ("cli", "mesh"))}
+                                 + ("cli", "mesh")),
+             "count_components": ("count_components", ("default",
+                                                       "affine"))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
@@ -2369,6 +2457,9 @@ def main():
             "stitching_tpu_torch/csrc/bilinear_sample.cu",
             "stitching_tpu/ops/pallas/block_warp.py:213 (and block_sample, "
             "block_warp.py:74)"),
+        "count_components": (
+            "stitching_tpu_torch/csrc/components.cu",
+            "none: the JAX package's single_region is a host flood fill"),
     }
     rows = []
     for name, res in results.items():
@@ -2379,7 +2470,9 @@ def main():
         rows.append(dict(name=name, route="cuda", source=meta[name][0],
                          replaces=meta[name][1],
                          launches=sum(by_path.values()),
-                         launches_by_path=by_path, status="ported", **res))
+                         launches_by_path=by_path,
+                         status=("added" if name == "count_components"
+                                 else "ported"), **res))
     total = time.time() - t_start
     print(f"total {total:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

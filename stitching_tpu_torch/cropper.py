@@ -10,9 +10,10 @@ the per-image crops at a resolution aspect.
 Rect algebra lives in module functions over a minimal `Rectangle` value
 type, on the host. The engine calls `prepare_from_mask` with the panorama
 mask it composited on the device and applies the rects with
-`compose.slice_stack`; the flood fill (the mask's copy to the host
-included) and the LIR search are timed as the stages
-`low/crop/flood_fill` and `low/crop/lir`. The step-by-step API plans
+`compose.slice_stack`; the single-region test (a region count on the
+card for a mask there, a host flood fill for one on the host) and the
+LIR search are timed as the stages `low/crop/flood_fill` and
+`low/crop/lir`. The step-by-step API plans
 from host lists: `prepare` composites the panorama mask on the
 cropper's device (`estimate_panorama_mask`, `Blender.create_panorama`),
 `crop_images` / `crop_img` slice host arrays, `Rectangle.draw_on` draws
@@ -27,6 +28,7 @@ import torch
 
 from . import profiling as prof
 from .errors import StitchingError
+from .ops.kernels.components import count_components
 from .ops.lir import largest_interior_rectangle
 
 _INVALID_CONTOUR = (
@@ -106,9 +108,17 @@ def zero_center(corners):
 def single_region(mask):
     """The flood-filled foreground region iff the mask is one
     simply-connected blob; None otherwise (the reference asserts exactly
-    one outer contour, cropper.py:95-99). The region grows by one
-    dilation a round until a round adds nothing; the call's rounds go to
-    the `crop/flood_rounds` counter."""
+    one outer contour, cropper.py:95-99).
+
+    A mask on the card stays there: its 4-connected regions are counted
+    there (`count_components`), and a count of 1 gives `mask > 0` on the
+    card. A host array or CPU tensor is flood filled on the host: the
+    region grows by one dilation a round until a round adds nothing, and
+    the call's rounds go to the `crop/flood_rounds` counter."""
+    if isinstance(mask, torch.Tensor) and mask.is_cuda:
+        fg = mask if mask.dtype in (torch.uint8, torch.bool) else mask > 0
+        n = int(count_components(fg.contiguous()).item())
+        return mask > 0 if n == 1 else None
     m = np.asarray(mask) > 0
     if not m.any():
         return None
@@ -180,7 +190,8 @@ class Cropper:
     def estimate_largest_interior_rectangle(self, mask):
         mask = torch.as_tensor(mask)
         with prof.stage_timer("low/crop/flood_fill"):
-            region = single_region(mask.cpu().numpy())
+            region = single_region(mask if mask.is_cuda
+                                   else mask.cpu().numpy())
         if region is None:
             raise StitchingError(_INVALID_CONTOUR)
         with prof.stage_timer("low/crop/lir"):

@@ -42,6 +42,7 @@ ENTRIES = {
     "two_nn_pairs_float": ("two_nn_float", _PAIRS),
     "two_nn_float": ("two_nn_float", _ROWS),
     "bilinear_sample": ("bilinear_sample", [_P] * 4 + [_I] * 6 + [_P]),
+    "count_components": ("components", [_P] * 3 + [_I] * 2 + [_P]),
     # measurement aids: empty launches, the floor under every kernel's time;
     # and a stream capture that counts what one call launches (`capture_end`
     # returns the count, or minus a cudaError_t)
