@@ -78,8 +78,11 @@
    the paths gave it (the sampler at the batched LOW and the per-image
    FINAL calls; the region count on every LOW panorama mask a path with
    the crop on planned from, also against the host flood fill it
-   replaces), and times kernel, plain version (for the region count: the
-   host flood fill, on the host's clock) and, where one exists, a
+   replaces; the MEDIUM/LOW downscale, against the host downscale it
+   replaces, bit for bit, at 6 views of 4032x3024 and 8 of 1600x1200),
+   and times kernel, plain version (for the region count: the host flood
+   fill, for the downscale: the host downscale and upload of a view, on
+   the host's clock) and, where one exists, a
    PyTorch library call computing the same function (device time per
    call from a CUDA graph replay; the kernel wrapper's CUDA-event time,
    host launch included, beside it), and the launch floor: an empty
@@ -126,14 +129,16 @@ B1_OPS_PER_S = 5.3 * INT8_OPS_PER_S
 FOCAL = 1400.0
 MAX_ANGLE = 0.6
 N_VIEWS = 8
-# kernel launches of one stitch on the downscaled branch: one 2-NN call
-# over all pairs, one batched LOW warp and one FINAL warp per kept view
+# kernel launches of one stitch on the downscaled branch: one MEDIUM/LOW
+# downscale per view, one 2-NN call over all pairs, one batched LOW warp
+# and one FINAL warp per kept view
 STITCH_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0,
-                   "bilinear_sample": 1 + N_VIEWS}
+                   "bilinear_sample": 1 + N_VIEWS, "downscale": N_VIEWS}
 # kernel launches of one stitch under a mesh, each rank: the sync branch
-# (one batched LOW and one batched FINAL warp of its images) and one 2-NN
-# call over its pairs
-MESH_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2}
+# (the MEDIUM resize on the host, one batched LOW and one batched FINAL
+# warp of its images) and one 2-NN call over its pairs
+MESH_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 2,
+                 "downscale": 0}
 # the two-rank phase: processes of their own sharing the one card over
 # gloo, each with a time limit
 MESH_RANKS = 2
@@ -634,6 +639,85 @@ def check_components(by_path, timed):
     path = max(rows, key=lambda p: rows[p]["shape"][0] * rows[p]["shape"][1])
     return dict(max_abs_err=0.0, timed_at=path, by_shape=rows,
                 **{k: v for k, v in rows[path].items() if k != "shape"})
+
+
+# the benchmark's view shapes: (views, (w, h)) of the 12 MP cells and of
+# the scan cell (and of this script's paths)
+DOWNSCALE_SHAPES = {"12mp": (6, (4032, 3024)), "scan": (8, (1600, 1200))}
+
+
+def check_downscale(dev):
+    """The registration inputs made on the card (`engine._card_downscale`:
+    one `downscale` launch a view, each after its upload lands) against
+    the host path they replace (`stack_images` of
+    `engine._host_downscale`), bit for bit, on random views of each shape
+    of `DOWNSCALE_SHAPES`. Timed per view at each shape: the kernel, and
+    as the plain time the host downscale of one view and the upload of
+    its two small images, on the host's clock. The byte bound counts each
+    source row the taps read once and each slot written once. No PyTorch
+    call computes it: no library column."""
+    from stitching_tpu_torch import engine
+    from stitching_tpu_torch.images import Images
+    from stitching_tpu_torch.ops.kernels.downscale import (
+        LAUNCHES, downscale, resize_table)
+    from stitching_tpu_torch.pipeline import stack_images
+    from stitching_tpu_torch.transfer import Uploader
+
+    rng = np.random.RandomState(19)
+    rows = {}
+    for name, (n, (w, h)) in DOWNSCALE_SHAPES.items():
+        views = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                 for _ in range(n)]
+        images = Images.of(views)
+        list(images)
+        med = images.get_scaled_img_sizes(Images.Resolution.MEDIUM)
+        low = images.get_scaled_img_sizes(Images.Resolution.LOW)
+        up = Uploader(views, device=dev)
+        got = engine._card_downscale(up, views, med, low, dev)
+        up.join()
+        torch.cuda.synchronize()
+        gray, colour = engine._host_downscale(views, med, low)
+        for g, want in zip(got, (gray, colour)):
+            ref = stack_images(want, "cpu")
+            if not (torch.equal(g.data.cpu(), ref.data)
+                    and np.array_equal(g.sizes, ref.sizes)):
+                raise AssertionError(f"downscale at {n} x {w}x{h}: the "
+                                     "card's stacks differ from the host's")
+        src = torch.from_numpy(views[0]).to(dev)
+        medium, low_stack = got
+        t_med, t_low = (torch.from_numpy(resize_table((h, w), s)).to(dev)
+                        for s in (med[0], low[0]))
+
+        def kernel():
+            downscale(src, medium.data[0], med[0], t_med, low_stack.data[0],
+                      low[0], t_low)
+
+        def host():
+            g1, c1 = engine._host_downscale(views[:1], med[:1], low[:1])
+            stack_images(g1, dev), stack_images(c1, dev)
+            torch.cuda.synchronize()
+
+        times = kernel_times(
+            kernel, host, launched_kernels(kernel, LAUNCHES, "downscale"),
+            iters=50, plain_on_host=True)
+        # the source rows the taps name (both outputs, each row once), the
+        # two slots written
+        taps = set()
+        for s in (med[0], low[0]):
+            table = resize_table((h, w), s)
+            taps.update(table[:2 * int(s[1])].tolist())
+        nbytes = (len(taps) * w * 3 + medium.data[0].numel() * 4
+                  + low_stack.data[0].numel() * 4)
+        bound, both = bounds_of(nbytes, 0.0, FP32_FLOPS_PER_S)
+        print(f"downscale: {n} views of {w}x{h} to MEDIUM {tuple(med[0])} "
+              f"and LOW {tuple(low[0])} equal to the host path; one view: "
+              f"{times_text(times)} (plain: the host downscale and upload; "
+              f"no library call) bound_us bytes={both['bytes'] * 1e3:.2f} "
+              f"({len(taps)} of {h} rows read)", flush=True)
+        rows[name] = dict(shape=[h, w], rows_read=len(taps), **bound,
+                          **times)
+    return dict(max_abs_err=0.0, timed_at="12mp", by_shape=rows,
+                **{k: v for k, v in rows["12mp"].items() if k != "shape"})
 
 
 # pairs of columns holding the same target row: one thread's two columns
@@ -1693,7 +1777,8 @@ def float_features(n_images, n, device, seed=0):
     return feats
 
 
-VERBOSE_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 0}
+VERBOSE_LAUNCHES = {"two_nn_pairs": 1, "two_nn": 0, "bilinear_sample": 0,
+                    "downscale": 0}
 
 
 class EncodeClock:
@@ -1862,6 +1947,7 @@ def main():
     from stitching_tpu_torch.ops.kernels.bilinear_sample import (
         bilinear_sample)
     from stitching_tpu_torch.ops.kernels.components import count_components
+    from stitching_tpu_torch.ops.kernels.downscale import downscale
     from stitching_tpu_torch.ops.kernels.two_nn import two_nn, two_nn_pairs
 
     t_start = time.time()
@@ -1893,7 +1979,8 @@ def main():
     # every kernel wrapper, with its inputs recorded at its call sites
     wrappers = {"two_nn_pairs": two_nn_pairs, "two_nn": two_nn,
                 "bilinear_sample": bilinear_sample,
-                "count_components": count_components}
+                "count_components": count_components,
+                "downscale": downscale}
     # the crop planner's region counts, kept per path (a path's launch
     # expectations leave them out: they follow where the crop is on)
     rec_cc = Recorder(cropper.count_components)
@@ -2416,6 +2503,7 @@ def main():
             + bs_m, bs_calls + bs_calls2 + bs_calls3),
         "count_components": check_components(cc_calls,
                                              ("default", "affine")),
+        "downscale": check_downscale(dev),
     }
     stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
     paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
@@ -2433,7 +2521,9 @@ def main():
                                  stitches + tuple(det_calls)
                                  + ("cli", "mesh")),
              "count_components": ("count_components", ("default",
-                                                       "affine"))}
+                                                       "affine")),
+             "downscale": ("downscale", stitches + tuple(det_calls)
+                           + ("cli",))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
@@ -2460,6 +2550,10 @@ def main():
         "count_components": (
             "stitching_tpu_torch/csrc/components.cu",
             "none: the JAX package's single_region is a host flood fill"),
+        "downscale": (
+            "stitching_tpu_torch/csrc/downscale.cu",
+            "none: the JAX package's _host_downscale resizes on the host "
+            "(stitching_tpu/engine.py)"),
     }
     rows = []
     for name, res in results.items():
@@ -2471,7 +2565,8 @@ def main():
                          replaces=meta[name][1],
                          launches=sum(by_path.values()),
                          launches_by_path=by_path,
-                         status=("added" if name == "count_components"
+                         status=("added" if name in ("count_components",
+                                                     "downscale")
                                  else "ported"), **res))
     total = time.time() - t_start
     print(f"total {total:.1f} s", flush=True)

@@ -102,7 +102,10 @@ def main():
     # 3 views with the 8-view set's spacing between neighbours
     views = cs.N_VIEWS
     cs.N_VIEWS = 3
-    cs.STITCH_LAUNCHES = dict(cs.STITCH_LAUNCHES, bilinear_sample=4)
+    cs.STITCH_LAUNCHES = dict(cs.STITCH_LAUNCHES, bilinear_sample=4,
+                              downscale=3)
+    # the downscale's check at a quarter of the views' sides
+    cs.DOWNSCALE_SHAPES = {"12mp": (2, (1008, 756)), "scan": (3, (400, 300))}
     cs.rotation_set = lambda n, size, focal, angle, device: (
         rotation_set(3, size, focal, angle * 2 / (views - 1), "cpu")
         if size == (1600, 1200)

@@ -16,10 +16,12 @@ the sync one):
 
 - async (downscaled registration, the production shape): the ORIGINAL
   upload starts at t=0 in the background (`transfer.Uploader`); a GRAY
-  MEDIUM stack from the host 8.8 fixed-point conversion and a colour LOW
-  stack from the host resize upload inside its yield lane; one batched
-  detect + match and one host copy of the small results. The registration
-  keeps the uploader, subset to the kept images, and no ORIGINAL stack;
+  MEDIUM stack (the 8.8 fixed-point luma) and a colour LOW stack, made on
+  the card from each original as its upload lands (`_card_downscale`),
+  or for float views or on the CPU resized on the host and uploaded
+  inside the uploader's yield lane; one batched detect + match and one
+  host copy of the small results. The registration keeps the uploader,
+  subset to the kept images, and no ORIGINAL stack;
 - sync (inputs already at MEDIUM size, or a mesh): the originals upload
   once as one stack, which is also the MEDIUM stack that detection reads;
   larger inputs under a mesh resize to MEDIUM on the host first, and the
@@ -67,10 +69,11 @@ from .compose import (StreamComposite, TileStack, _gain_map_kernel,
                       warp_stack_streamed)
 from .errors import StitchingError
 from .images import Images
+from .ops.kernels.downscale import downscale, resize_table
 from .ops.resize import resize as _host_resize
 from .parallel.mesh import all_gather_leading
-from .pipeline import (match_stack_fetch, pad_batch, resize_stack,
-                       stack_images)
+from .pipeline import (DeviceStack, match_stack_fetch, pad_batch,
+                       resize_stack, stack_images)
 from .subsetter import Subsetter
 from .transfer import Uploader
 from .warper import Warper
@@ -167,18 +170,27 @@ def _register_sync(st, images_obj, originals, med_sizes, same,
 
 
 def _register_async(st, images_obj, originals, med_sizes, feature_masks):
-    """Downscaled registration: the ORIGINAL upload streams from t=0;
-    gray MEDIUM + colour LOW host stacks upload inside its yield lane;
-    one batched detect + match, one host copy of the results."""
+    """Downscaled registration: the ORIGINAL upload streams from t=0; the
+    gray MEDIUM + colour LOW stacks are made on the card as the originals
+    land, or on the host and uploaded inside its yield lane; one batched
+    detect + match, one host copy of the results."""
     n = len(originals)
     low_sizes = images_obj.get_scaled_img_sizes(Resolution.LOW)
     uploader = Uploader(originals, device=st.device)
+    on_card = _downscales_on_card(st.device, originals)
     with prof.stage_timer("registration/resize_medium"):
-        med_gray, low_imgs = _host_downscale(originals, med_sizes, low_sizes)
+        if on_card:
+            medium, low_stack = _card_downscale(uploader, originals,
+                                                med_sizes, low_sizes,
+                                                st.device)
+        else:
+            med_gray, low_imgs = _host_downscale(originals, med_sizes,
+                                                 low_sizes)
     with uploader.yield_lane():
         with prof.stage_timer("registration/upload"):
-            medium = stack_images(med_gray, st.device)
-            low_stack = stack_images(low_imgs, st.device)
+            if not on_card:
+                medium = stack_images(med_gray, st.device)
+                low_stack = stack_images(low_imgs, st.device)
             prof.fence(medium.data, low_stack.data)
         with prof.stage_timer("registration/detect"):
             masks_medium = _prepare_feature_masks(st, feature_masks, medium,
@@ -252,6 +264,46 @@ def _host_downscale(originals, med_sizes, low_sizes):
         med = pool.map(gray_med, originals, med_sizes)
         low = pool.map(_host_resize, originals, low_sizes)
         return list(med), list(low)
+
+
+def _downscales_on_card(device, originals):
+    """Whether the async branch downscales on the card: on a CUDA device,
+    for uint8 views of one plane or three channels. Other views (float,
+    or on the CPU) take `_host_downscale`; a mesh never takes the async
+    branch."""
+    return torch.device(device).type == "cuda" and all(
+        im.dtype == np.uint8
+        and (im.ndim == 2 or im.ndim == 3 and im.shape[2] == 3)
+        for im in originals)
+
+
+def _card_downscale(uploader, originals, med_sizes, low_sizes, device):
+    """`_host_downscale`'s images as the stacks `stack_images` makes of
+    them, made where the originals land: each view is downscaled
+    (`ops/kernels/downscale.py`) into its slots once `uploader` has it on
+    the device, while the later views keep uploading."""
+    chans = 3 if any(im.ndim == 3 for im in originals) else 1
+    medium = _empty_stack(med_sizes, 1, device)
+    low = _empty_stack(low_sizes, chans, device)
+    tables = [resize_table(im.shape[:2], size)
+              for im, m, lo in zip(originals, med_sizes, low_sizes)
+              for size in (m, lo)]
+    tables = torch.from_numpy(np.concatenate(tables)).to(device).split(
+        [len(t) for t in tables])
+    for i in range(len(originals)):
+        downscale(uploader.image(i), medium.data[i], med_sizes[i],
+                  tables[2 * i], low.data[i], low_sizes[i], tables[2 * i + 1])
+    return medium, low
+
+
+def _empty_stack(sizes, chans, device):
+    """A stack for images of `sizes` ((w, h) each), padded as
+    `stack_images` pads; its data is left for the caller to write."""
+    sizes = np.asarray(sizes, np.int32).reshape(-1, 2)
+    data = torch.empty((len(sizes), _round_up(int(sizes[:, 1].max())),
+                        _round_up(int(sizes[:, 0].max())), chans),
+                       dtype=torch.float32, device=device)
+    return DeviceStack(data, sizes)
 
 
 def _pad_sizes(sizes, b):

@@ -43,6 +43,10 @@ ENTRIES = {
     "two_nn_float": ("two_nn_float", _ROWS),
     "bilinear_sample": ("bilinear_sample", [_P] * 4 + [_I] * 6 + [_P]),
     "count_components": ("components", [_P] * 3 + [_I] * 2 + [_P]),
+    # one view's MEDIUM and LOW slots: the source, its width and channels,
+    # then each output's slot, table, padded and true sizes
+    "downscale_view": ("downscale", [_P, _I, _I] + [_P] * 2 + [_I] * 4
+                       + [_P] * 2 + [_I] * 5 + [_P]),
     # measurement aids: empty launches, the floor under every kernel's time;
     # and a stream capture that counts what one call launches (`capture_end`
     # returns the count, or minus a cudaError_t)
