@@ -647,10 +647,10 @@ DOWNSCALE_SHAPES = {"12mp": (6, (4032, 3024)), "scan": (8, (1600, 1200))}
 
 
 def check_downscale(dev):
-    """The registration inputs made on the card (`engine._card_downscale`:
-    one `downscale` launch a view, each after its upload lands) against
-    the host path they replace (`stack_images` of
-    `engine._host_downscale`), bit for bit, on random views of each shape
+    """The registration inputs made on the card
+    (`engine._downscale_landed`: one `downscale` launch a view, each after
+    its upload lands) against the host path they replace (`stack_images`
+    of `engine._host_downscale`), bit for bit, on random views of each shape
     of `DOWNSCALE_SHAPES`. Timed per view at each shape: the kernel, and
     as the plain time the host downscale of one view and the upload of
     its two small images, on the host's clock. The byte bound counts each
@@ -673,7 +673,7 @@ def check_downscale(dev):
         med = images.get_scaled_img_sizes(Images.Resolution.MEDIUM)
         low = images.get_scaled_img_sizes(Images.Resolution.LOW)
         up = Uploader(views, device=dev)
-        got = engine._card_downscale(up, views, med, low, dev)
+        got = engine._downscale_landed(up, views, med, low, dev)
         up.join()
         torch.cuda.synchronize()
         gray, colour = engine._host_downscale(views, med, low)

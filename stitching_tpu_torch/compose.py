@@ -21,12 +21,16 @@ one pass over a stacked tile batch that stays in device memory:
   and leave the card while later tiles feed (`_blend_monolithic_stream`).
 
 The streamed stages do the same per image, as the reference's FINAL pass
-schedules them: `warp_single` / `warp_stack_streamed` warp each image as
-its upload lands (`transfer.Uploader`), and `StreamComposite` feeds it
-into the blend's accumulators at once. Both run the batched stages' own
-per-image code (the B = 1 warp, `_mb_feed_one`, `_feather_feed_one`,
-`_paste_feed_one`) in image order, so the streamed panorama equals the
-batched one value for value.
+schedules them. `FinalPlan` plans that pass once a stitch (the warp
+ROIs, the crop, the gains and seam sizes on the card, the blend plan).
+As each upload lands (`transfer.Uploader`), `final_tile` makes the
+image's tile and seam (warp, crop, gains, seam resize) and
+`StreamComposite` feeds them into the blend's accumulators at once; over
+the budget, `warp_stack_streamed` warps each into a stack for the batched
+stages instead. Both run the batched stages' own per-image code (the
+B = 1 warp, the gain and seam kernels on one row, `_mb_feed_one`,
+`_feather_feed_one`, `_paste_feed_one`) in image order, so the streamed
+panorama equals the batched one value for value.
 
 Tiles share one 64-bucketed (B, TH, TW, C) shape; true per-image corners
 and sizes ride along as host metadata.
@@ -54,7 +58,7 @@ from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
 from .ops.warp import PROJECTORS, warp_roi
 from .parallel.mesh import (all_gather_leading, all_reduce_max,
                             all_reduce_sum, exchange)
-from .pipeline import DeviceStack, RankBlock, resize_stack
+from .pipeline import DeviceStack, RankBlock, pad_sizes, resize_stack
 
 
 def _round_up(x, m=64):
@@ -248,28 +252,16 @@ def warp_single(raw, size_wh, K, R, corner, dsize, scale, warper_type,
         warper_type=warper_type)
 
 
-def warp_stack_streamed(source, sizes, Ks, Rs, scale,
-                        warper_type) -> TileStack:
+def warp_stack_streamed(source, plan) -> TileStack:
     """Per-image warp paced by an upload stream.
 
     source: a `transfer.Uploader` (`image(i)` waits until image i has
-    landed); sizes: per-image (w, h) at the target resolution. Each image
-    warps as soon as it lands, through `warp_single` at the tile shape of
-    the whole set, so the stack equals `warp_stack`'s."""
-    n = len(Ks)
-    sizes = [tuple(map(int, s)) for s in sizes]
-    corners, dsizes = plan_warp_rois(sizes, Ks, Rs, scale, warper_type)
-    th = _round_up(int(dsizes[:, 1].max()))
-    tw = _round_up(int(dsizes[:, 0].max()))
-    tiles, masks = [], []
-    for i in range(n):
-        tile, mask = warp_single(source.image(i), sizes[i], Ks[i], Rs[i],
-                                 corners[i], dsizes[i], scale, warper_type,
-                                 th, tw, channels=source.channels)
-        tiles.append(tile)
-        masks.append(mask)
-    return TileStack(torch.cat(tiles), torch.cat(masks), np.asarray(corners),
-                     np.asarray(dsizes))
+    landed); plan: the pass's `FinalPlan`. Each image warps into its ROI
+    as soon as it lands, so the stack equals `warp_stack`'s."""
+    tiles, masks = zip(*(plan.warp(i, source.image(i))
+                         for i in range(len(plan.sizes))))
+    return TileStack(torch.cat(tiles), torch.cat(masks), plan.corners,
+                     plan.dsizes)
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +277,16 @@ def crop_shape(rects, th, tw):
     cw = _round_up(max(r[2] for r in rects))
     return (ch, cw, max(0, max(r[1] for r in rects) + ch - th),
             max(0, max(r[0] for r in rects) + cw - tw))
+
+
+def crop_geometry(cropper, aspect, corners, sizes):
+    """The crop by the prepared `cropper`, at `aspect` times its scale, of
+    tiles at `corners` of `sizes`: each tile's (x, y, w, h) rect, and the
+    cropped corners and sizes (the ROI math lives in the cropper)."""
+    rects = [tuple(r.times(aspect)) for r in cropper.intersection_rectangles]
+    corners, sizes = cropper.crop_rois([tuple(c) for c in corners],
+                                       [tuple(s) for s in sizes], aspect)
+    return rects, np.asarray(corners), np.asarray(sizes, np.int64)
 
 
 def slice_tiles(data, masks, rects, ch, cw, pad_h, pad_w):
@@ -409,41 +411,52 @@ def plan_gain_arrays(compensator, sizes, b, C):
     return "map", (gstack, cell0, inv_bs)
 
 
+def _gains(compensator, sizes, b, C, device):
+    """`plan_gain_arrays` on `device`, as the one function that applies
+    them: (tiles, batch rows) -> the tiles times those rows' gains."""
+    mode, arrs = plan_gain_arrays(compensator, sizes, b, C)
+    if mode == "no":
+        return lambda tiles, rows: tiles
+    kernel, arrs = ((_gain_mul_kernel, (arrs,)) if mode == "scalar"
+                    else (_gain_map_kernel, arrs))
+    arrs = [torch.as_tensor(a, device=device) for a in arrs]
+    return lambda tiles, rows: kernel(tiles, *[a[rows] for a in arrs])
+
+
 def apply_gains_stack(stack: TileStack, compensator) -> TileStack:
     """Apply the fed compensator to the whole tile stack on its device
     (under a mesh, to this rank's block)."""
-    mode, arrs = plan_gain_arrays(compensator, stack.sizes, stack.batch,
-                                  stack.data.shape[-1])
-    if mode == "no":
-        return stack
-    dev = stack.data.device
-    lo, hi = stack.lo, stack.lo + stack.data.shape[0]
-    if mode == "scalar":
-        tiles = _gain_mul_kernel(stack.data,
-                                 torch.as_tensor(arrs[lo:hi], device=dev))
-    else:
-        tiles = _gain_map_kernel(
-            stack.data, *[torch.as_tensor(a[lo:hi], device=dev)
-                          for a in arrs])
-    return dataclasses.replace(stack, data=tiles)
+    gains = _gains(compensator, stack.sizes, stack.batch,
+                   stack.data.shape[-1], stack.data.device)
+    tiles = gains(stack.data, slice(stack.lo, stack.lo + stack.data.shape[0]))
+    return stack if tiles is stack.data else dataclasses.replace(stack,
+                                                                 data=tiles)
 
 
 # ---------------------------------------------------------------------------
 # Batched seam-mask resize (dilate + bilinear resize + AND with warp mask)
 # ---------------------------------------------------------------------------
 
-def _seam_resize_kernel(seams, lo_sizes, fin_masks, fin_sizes):
-    """seams: (B, LH, LW) float32; fin_masks: (B, TH, TW) float32 {0,255}.
-    Per image: 3x3 dilate the LOW seam mask, bilinear-resize it to the
-    image's FINAL size, zero outside the FINAL warp mask."""
+def _seam_sizes(low_sizes, fin_sizes, b, device):
+    """The LOW and the FINAL (w, h) of `b` batch slots (`pad_sizes`) on
+    `device`: what `_seam_resize_kernel` reads."""
+    return tuple(torch.as_tensor(pad_sizes(s, b), device=device)
+                 for s in (low_sizes, fin_sizes))
+
+
+def _seam_resize_kernel(seams, seam_sizes, rows, fin_masks):
+    """seams: (B, LH, LW) float32; seam_sizes: `_seam_sizes`, whose batch
+    rows `rows` are these B images'; fin_masks: (B, TH, TW) float32
+    {0,255}. Per image: 3x3 dilate the LOW seam mask, bilinear-resize it
+    to the image's FINAL size, zero outside the FINAL warp mask."""
     LH, LW = seams.shape[1], seams.shape[2]
     TH, TW = fin_masks.shape[1], fin_masks.shape[2]
     dev = seams.device
     # max_pool2d pads with -inf where the reference pads with 0: every
     # window holds a real mask value >= 0, so the two maxima agree
     dil = F.max_pool2d(seams[:, None], 3, stride=1, padding=1)[:, 0]
-    lsz = lo_sizes.to(torch.float32)
-    fsz = fin_sizes.to(torch.float32).clamp_min(1.0)
+    lsz = seam_sizes[0][rows].to(torch.float32)
+    fsz = seam_sizes[1][rows].to(torch.float32).clamp_min(1.0)
 
     def axis(n_out, lo, fin, limit):
         pos = ((torch.arange(n_out, dtype=torch.float32, device=dev)[None]
@@ -477,19 +490,15 @@ def resize_seam_masks_stack(seam_masks_low, final_stack: TileStack):
     rank (one row per image, or more) and this rank resizes its block.
     """
     lo_masks, low_sizes = seam_masks_low
-    dev = final_stack.data.device
     b, lo = final_stack.data.shape[0], final_stack.lo
     if final_stack.mesh is not None:
         part = lo_masks[lo:lo + b]
         lo_masks = torch.cat([part, part.new_zeros(
             (b - part.shape[0], *part.shape[1:]))])
-    lsz = np.ones((final_stack.batch, 2), np.int32)
-    lsz[:len(low_sizes)] = np.asarray(low_sizes, np.int32)
-    fsz = np.ones((final_stack.batch, 2), np.int32)
-    fsz[:len(final_stack.sizes)] = final_stack.sizes
-    return _seam_resize_kernel(
-        lo_masks, torch.as_tensor(lsz[lo:lo + b], device=dev),
-        final_stack.masks, torch.as_tensor(fsz[lo:lo + b], device=dev))
+    sizes = _seam_sizes(low_sizes, final_stack.sizes, final_stack.batch,
+                        final_stack.data.device)
+    return _seam_resize_kernel(lo_masks, sizes, slice(lo, lo + b),
+                               final_stack.masks)
 
 
 # ---------------------------------------------------------------------------
@@ -527,11 +536,27 @@ def _shifted_tile_window(tile, seam, shift, size):
 # coarse band depends on it
 _MB_BUCKET = 128
 # accumulator bytes over which `blend_stack` leaves the batched blend for
-# X/Y strips or the streamed monolithic blend, and over which the engine's
-# FINAL pass leaves the streamed composite: the reference's default
-# `STITCHING_TPU_BLEND_BUDGET`. The engine reads it at each call
+# X/Y strips or the streamed monolithic blend (`_batched_bytes`), and over
+# which the engine's FINAL pass leaves the streamed composite
+# (`stream_fits`): the reference's default `STITCHING_TPU_BLEND_BUDGET`.
+# Both read it at each call
 BLEND_BUDGET_BYTES = 4e9
 _EPS = 1e-5
+
+
+def stream_fits(p, C):
+    """Whether the accumulators that `StreamComposite` allocates for blend
+    plan `p` and C channels (C + 1 float32 planes at every level of the
+    canvas) fit `BLEND_BUDGET_BYTES`."""
+    levels = p["nb"] + 1 if p["kind"] == "multiband" else 1
+    return sum((p["ph"] >> lv) * (p["pw"] >> lv) * (C + 1) * 4
+               for lv in range(levels)) <= BLEND_BUDGET_BYTES
+
+
+def _batched_bytes(h, w, C):
+    """`blend_stack`'s estimate for an (h, w) canvas, the reference's: C + 1
+    float32 planes, with the coarser levels and the working copies."""
+    return h * w * (C + 1) * 4 * 8 // 3
 
 
 def _plan_blend(corners, sizes, b, blender_type, blend_strength, th, twd):
@@ -543,8 +568,7 @@ def _plan_blend(corners, sizes, b, blender_type, blend_strength, th, twd):
     sizes = np.asarray(sizes)
     tl, (dw, dh) = _canvas_roi(corners, sizes)
     n = len(sizes)
-    szs = np.ones((b, 2), np.int32)
-    szs[:n] = sizes
+    szs = pad_sizes(sizes, b)
 
     blend_width = np.sqrt(dh * dw) * blend_strength / 100.0
     kind = blender_type if blend_width >= 1 else "no"
@@ -1125,7 +1149,7 @@ def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
     p = _plan_blend(stack.corners, stack.sizes, b, blender_type,
                     blend_strength, th, twd)
     ph, pw, m = p["ph"], p["pw"], p["m"]
-    if ph * pw * (C + 1) * 4 * 8 // 3 > budget:
+    if _batched_bytes(ph, pw, C) > budget:
         # strip axis: whichever canvas axis the tile windows are narrow
         # against (wide panoramas -> X strips; tall multi-row canvases ->
         # Y strips)
@@ -1134,7 +1158,7 @@ def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
         if ratios[a] <= 1 / 3:
             # bytes per unit length of the strip axis (a full column of
             # accumulators for X strips, a full row for Y strips)
-            per_unit = (ph if a == 0 else pw) * (C + 1) * 4 * 8 // 3
+            per_unit = _batched_bytes(ph if a == 0 else pw, 1, C)
             strip_w = max(int(budget // (2 * per_unit))
                           - 2 * (p["ww"], p["wh"])[a], max(256, m))
             return _blend_strips(stack, seam_masks, p, (strip_w // m) * m,
@@ -1156,13 +1180,77 @@ def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
 # Streamed composition: feed each image as it lands
 # ---------------------------------------------------------------------------
 
+class FinalPlan:
+    """The FINAL pass of the async branch, planned once a stitch and read
+    by the streaming decision, `final_tile`, `StreamComposite` and
+    `warp_stack_streamed`.
+
+    Built from the images' FINAL sizes and cameras, the surface, the
+    prepared `cropper` (None without a crop) with its LOW -> FINAL
+    `aspect`, the fed compensator, the LOW seam masks (`seam_masks_low`:
+    masks on the card, LOW sizes), the blender and the originals'
+    channels. It holds the warp ROIs (`corners`, `dsizes`) and their
+    `tile` shape; the crop rects at FINAL and their `crop_shape` (`rects`,
+    `crop`: None without a crop) and the cropped ROIs (`fin_corners`,
+    `fin_sizes`); `gains` (`_gains`); `seams_low` and their `seam_sizes`;
+    and `blend`, the blend plan of the cropped geometry."""
+
+    def __init__(self, sizes, Ks, Rs, scale, warper_type, cropper, aspect,
+                 compensator, seam_masks_low, blender_type, blend_strength,
+                 channels):
+        self.sizes = sizes = [tuple(map(int, s)) for s in sizes]
+        self.Ks, self.Rs, self.scale = Ks, Rs, scale
+        self.warper_type, self.channels = warper_type, channels
+        self.corners, self.dsizes = plan_warp_rois(sizes, Ks, Rs, scale,
+                                                   warper_type)
+        self.tile = (_round_up(int(self.dsizes[:, 1].max())),
+                     _round_up(int(self.dsizes[:, 0].max())))
+        self.rects = self.crop = None
+        self.fin_corners, self.fin_sizes = self.corners, self.dsizes
+        if cropper is not None:
+            self.rects, self.fin_corners, self.fin_sizes = crop_geometry(
+                cropper, aspect, self.corners, self.dsizes)
+            self.crop = crop_shape(self.rects, *self.tile)
+        n = len(sizes)
+        self.seams_low, low_sizes = seam_masks_low
+        dev = self.seams_low.device
+        self.gains = _gains(compensator, self.fin_sizes, n, channels, dev)
+        self.seam_sizes = _seam_sizes(low_sizes, self.fin_sizes, n, dev)
+        self.blend = _plan_blend(self.fin_corners, self.fin_sizes, n,
+                                 blender_type, blend_strength,
+                                 *(self.crop or self.tile)[:2])
+
+    def warp(self, i, raw):
+        """Image i's original warped into its ROI (`warp_single`)."""
+        return warp_single(raw, self.sizes[i], self.Ks[i], self.Rs[i],
+                           self.corners[i], self.dsizes[i], self.scale,
+                           self.warper_type, *self.tile,
+                           channels=self.channels)
+
+
+def final_tile(plan: FinalPlan, i, raw):
+    """Image i of the FINAL pass from its landed original `raw`, made as
+    the batched stages make row i of theirs: warped, cropped to its rect,
+    its gains applied, and its LOW seam mask resized against its warp
+    mask. Returns the (1, TH, TW, C) tile and the (1, TH, TW) seam."""
+    tile, mask = plan.warp(i, raw)
+    if plan.crop is not None:
+        tile, mask = slice_tiles(tile, mask, plan.rects[i:i + 1],
+                                 *plan.crop)
+    rows = slice(i, i + 1)
+    return (plan.gains(tile, rows),
+            _seam_resize_kernel(plan.seams_low[rows], plan.seam_sizes, rows,
+                                mask))
+
+
 class StreamComposite:
     """Feed-as-it-lands composition over a known canvas geometry.
 
-    Built from the same host plan as `blend_stack` (`_plan_blend`), fed one
-    (tile, seam) pair at a time through the batched blend's own per-image
-    feeds, in place, and finished with one collapse. Fed in image order, it
-    equals `blend_stack` value for value.
+    Built from a blend plan (`_plan_blend`, as `blend_stack` plans; the
+    FINAL pass's is `FinalPlan.blend`), fed one (tile, seam) pair at a
+    time through the batched blend's own per-image feeds, in place, and
+    finished with one collapse. Fed in image order, it equals
+    `blend_stack` value for value.
 
     frontier_fetch: once every unfed image's window lies right of a column
     frontier, the finished columns left of it collapse (`_collapse_band`,
@@ -1171,10 +1259,7 @@ class StreamComposite:
     the feeds. `finish` then returns host arrays.
     """
 
-    def __init__(self, corners, sizes, blender_type, blend_strength,
-                 th, tw, C=3, frontier_fetch=False, device="cuda"):
-        p = _plan_blend(np.asarray(corners), np.asarray(sizes), len(sizes),
-                        blender_type, blend_strength, th, tw)
+    def __init__(self, p, C=3, frontier_fetch=False, device="cuda"):
         self.p = p
         self.C = C
         self.device = torch.device(device)

@@ -8,20 +8,19 @@ the card. The stages are named for `profiling.stage_timer` as in the
 reference; the port splits two of them further, `low/crop` into
 `low/crop/paste`, `/flood_fill`, `/lir` and `/slice`, and each image of
 `final/stream` into `final/upload_wait`, `final/stream/warp` and
-`final/stream/feed`; `composite/stream_budget` times the streamed
-branch's budget check, between the two passes.
+`final/stream/feed`.
 
 Registration keeps the reference's three branches (a mesh always takes
 the sync one):
 
 - async (downscaled registration, the production shape): the ORIGINAL
   upload starts at t=0 in the background (`transfer.Uploader`); a GRAY
-  MEDIUM stack (the 8.8 fixed-point luma) and a colour LOW stack, made on
-  the card from each original as its upload lands (`_card_downscale`),
-  or for float views or on the CPU resized on the host and uploaded
-  inside the uploader's yield lane; one batched detect + match and one
-  host copy of the small results. The registration keeps the uploader,
-  subset to the kept images, and no ORIGINAL stack;
+  MEDIUM stack (the 8.8 fixed-point luma) and a colour LOW stack, made
+  from each original as its upload lands (`_downscale_landed`), or for
+  float views resized on the host and uploaded inside the uploader's
+  yield lane; one batched detect + match and one host copy of the small
+  results. The registration keeps the uploader, subset to the kept
+  images, and no ORIGINAL stack;
 - sync (inputs already at MEDIUM size, or a mesh): the originals upload
   once as one stack, which is also the MEDIUM stack that detection reads;
   larger inputs under a mesh resize to MEDIUM on the host first, and the
@@ -30,16 +29,17 @@ the sync one):
   already on the card): no image upload at all; MEDIUM is the stack
   resized on the card.
 
-Compositing follows the reference's schedule too. On the async branch,
-when the monolithic accumulators fit `compose.BLEND_BUDGET_BYTES`, the
-FINAL pass streams per image (`_composite_streamed`): each image warps,
-crops, takes its gains and its seam mask and feeds the blend
-(`compose.StreamComposite`) as soon as its upload lands, and the panorama
-collapses and copies to the host in bands. Otherwise one batched pass:
-the FINAL warp (paced by the uploader where there is one), crop, gains,
-seam masks and `blend_stack`, which takes strips or the streamed
-monolithic blend over the budget. With timelapse the batched pass writes
-one frame per image instead of blending.
+Compositing follows the reference's schedule too. The async branch plans
+its FINAL pass once (`compose.FinalPlan`); when the streamed composite's
+accumulators fit `compose.BLEND_BUDGET_BYTES` (`compose.stream_fits`),
+the pass streams per image (`_composite_streamed`): each image warps,
+crops, takes its gains and its seam mask (`compose.final_tile`) and feeds
+the blend (`compose.StreamComposite`) as soon as its upload lands, and
+the panorama collapses and copies to the host in bands. Otherwise one
+batched pass: the FINAL warp (paced by the uploader where there is one),
+crop, gains, seam masks and `blend_stack`, which takes strips or the
+streamed monolithic blend over the budget. With timelapse the batched
+pass writes one frame per image instead of blending.
 
 Under a mesh (`Stitcher(mesh=)`, `parallel.mesh`; SPMD, every rank
 called with the same inputs) each rank uploads, detects on, warps, crops,
@@ -59,21 +59,18 @@ import torch
 
 from . import compose
 from . import profiling as prof
-from .compose import (StreamComposite, TileStack, _gain_map_kernel,
-                      _gain_mul_kernel, _plan_blend, _round_up,
-                      _seam_resize_kernel, apply_gains_stack, blend_stack,
-                      crop_shape, fetch_image, gather_tiles,
-                      plan_gain_arrays,
-                      plan_warp_rois, resize_seam_masks_stack, slice_stack,
-                      slice_tiles, warp_single, warp_stack,
-                      warp_stack_streamed)
+from .compose import (FinalPlan, StreamComposite, TileStack,
+                      apply_gains_stack, blend_stack, crop_geometry,
+                      fetch_image, final_tile, gather_tiles,
+                      resize_seam_masks_stack, slice_stack, stream_fits,
+                      warp_stack, warp_stack_streamed)
 from .errors import StitchingError
 from .images import Images
 from .ops.kernels.downscale import downscale, resize_table
 from .ops.resize import resize as _host_resize
 from .parallel.mesh import all_gather_leading
-from .pipeline import (DeviceStack, match_stack_fetch, pad_batch,
-                       resize_stack, stack_images)
+from .pipeline import (empty_stack, match_stack_fetch, pad_batch,
+                       pad_sizes, resize_stack, stack_images)
 from .subsetter import Subsetter
 from .transfer import Uploader
 from .warper import Warper
@@ -92,7 +89,7 @@ class Registration:
     cameras: list
     scale: float            # canvas scale (median focal)
     # async branch: the originals streaming up in the background, and the
-    # LOW stack from the host resize
+    # LOW stack made as they land
     uploader: object = None
     low_stack: object = None
 
@@ -142,7 +139,7 @@ def _register_sync(st, images_obj, originals, med_sizes, same,
         if prestaged is not None:
             stack = prestaged
             medium = stack if same else resize_stack(
-                stack, _pad_sizes(med_sizes, stack.batch))
+                stack, pad_sizes(med_sizes, stack.batch))
         elif same:
             stack = stack_images(originals, st.device, mesh)
             medium = stack
@@ -171,24 +168,24 @@ def _register_sync(st, images_obj, originals, med_sizes, same,
 
 def _register_async(st, images_obj, originals, med_sizes, feature_masks):
     """Downscaled registration: the ORIGINAL upload streams from t=0; the
-    gray MEDIUM + colour LOW stacks are made on the card as the originals
-    land, or on the host and uploaded inside its yield lane; one batched
+    gray MEDIUM + colour LOW stacks are made as the originals land, or for
+    float views on the host and uploaded inside its yield lane; one batched
     detect + match, one host copy of the results."""
     n = len(originals)
     low_sizes = images_obj.get_scaled_img_sizes(Resolution.LOW)
     uploader = Uploader(originals, device=st.device)
-    on_card = _downscales_on_card(st.device, originals)
+    landed = _downscalable(originals)
     with prof.stage_timer("registration/resize_medium"):
-        if on_card:
-            medium, low_stack = _card_downscale(uploader, originals,
-                                                med_sizes, low_sizes,
-                                                st.device)
+        if landed:
+            medium, low_stack = _downscale_landed(uploader, originals,
+                                                  med_sizes, low_sizes,
+                                                  st.device)
         else:
             med_gray, low_imgs = _host_downscale(originals, med_sizes,
                                                  low_sizes)
     with uploader.yield_lane():
         with prof.stage_timer("registration/upload"):
-            if not on_card:
+            if not landed:
                 medium = stack_images(med_gray, st.device)
                 low_stack = stack_images(low_imgs, st.device)
             prof.fence(medium.data, low_stack.data)
@@ -266,25 +263,25 @@ def _host_downscale(originals, med_sizes, low_sizes):
         return list(med), list(low)
 
 
-def _downscales_on_card(device, originals):
-    """Whether the async branch downscales on the card: on a CUDA device,
-    for uint8 views of one plane or three channels. Other views (float,
-    or on the CPU) take `_host_downscale`; a mesh never takes the async
-    branch."""
-    return torch.device(device).type == "cuda" and all(
-        im.dtype == np.uint8
-        and (im.ndim == 2 or im.ndim == 3 and im.shape[2] == 3)
-        for im in originals)
+def _downscalable(originals):
+    """Whether the async branch makes its stacks as the originals land
+    (`_downscale_landed`): for uint8 views of one plane or three channels,
+    the views `downscale` takes, on every device. Float views take
+    `_host_downscale`; a mesh never takes the async branch."""
+    return all(im.dtype == np.uint8
+               and (im.ndim == 2 or im.ndim == 3 and im.shape[2] == 3)
+               for im in originals)
 
 
-def _card_downscale(uploader, originals, med_sizes, low_sizes, device):
+def _downscale_landed(uploader, originals, med_sizes, low_sizes, device):
     """`_host_downscale`'s images as the stacks `stack_images` makes of
     them, made where the originals land: each view is downscaled
-    (`ops/kernels/downscale.py`) into its slots once `uploader` has it on
-    the device, while the later views keep uploading."""
+    (`ops/kernels/downscale.py`: the kernel on the card, its plain version
+    on the CPU) into its slots once `uploader` has it on the device, while
+    the later views keep uploading."""
     chans = 3 if any(im.ndim == 3 for im in originals) else 1
-    medium = _empty_stack(med_sizes, 1, device)
-    low = _empty_stack(low_sizes, chans, device)
+    medium = empty_stack(med_sizes, 1, device)
+    low = empty_stack(low_sizes, chans, device)
     tables = [resize_table(im.shape[:2], size)
               for im, m, lo in zip(originals, med_sizes, low_sizes)
               for size in (m, lo)]
@@ -294,22 +291,6 @@ def _card_downscale(uploader, originals, med_sizes, low_sizes, device):
         downscale(uploader.image(i), medium.data[i], med_sizes[i],
                   tables[2 * i], low.data[i], low_sizes[i], tables[2 * i + 1])
     return medium, low
-
-
-def _empty_stack(sizes, chans, device):
-    """A stack for images of `sizes` ((w, h) each), padded as
-    `stack_images` pads; its data is left for the caller to write."""
-    sizes = np.asarray(sizes, np.int32).reshape(-1, 2)
-    data = torch.empty((len(sizes), _round_up(int(sizes[:, 1].max())),
-                        _round_up(int(sizes[:, 0].max())), chans),
-                       dtype=torch.float32, device=device)
-    return DeviceStack(data, sizes)
-
-
-def _pad_sizes(sizes, b):
-    out = np.ones((b, 2), np.int32)
-    out[:len(sizes)] = np.asarray(sizes, np.int32)
-    return out
 
 
 def _subset_stack(stack, indices, mesh=None):
@@ -364,32 +345,30 @@ def _geometry(reg, resolution):
     return sizes, Ks, Rs, reg.scale * aspect
 
 
-def warp_resolution(st, reg: Registration, resolution) -> TileStack:
+def warp_resolution(st, reg: Registration, resolution,
+                    final=None) -> TileStack:
     """Warp every image onto the compositing surface at `resolution`.
 
-    Async branch: LOW warps the host-resized LOW stack; FINAL warps each
-    image as its upload lands (`warp_stack_streamed`). Otherwise the
-    ORIGINAL stack resized on the card, in one batched pass."""
+    Async branch: LOW warps the LOW stack made at registration; FINAL
+    warps each image as its upload lands, into the ROIs of `final` (the
+    pass's `compose.FinalPlan`). Otherwise the ORIGINAL stack resized on
+    the card, in one batched pass."""
+    if reg.uploader is not None and resolution == Resolution.FINAL:
+        return warp_stack_streamed(reg.uploader, final)
     sizes, Ks, Rs, scale = _geometry(reg, resolution)
     wt = st.warper.warper_type
-    if reg.uploader is not None:
-        if resolution == Resolution.LOW and reg.low_stack is not None:
-            src = reg.low_stack
-            return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt)
-        return warp_stack_streamed(reg.uploader, sizes, Ks, Rs, scale, wt)
-    src = resize_stack(reg.stack, _pad_sizes(sizes, reg.stack.batch))
+    src = reg.low_stack
+    if reg.uploader is None:
+        src = resize_stack(reg.stack, pad_sizes(sizes, reg.stack.batch))
     return warp_stack(src.data, src.sizes, Ks, Rs, scale, wt, src.mesh)
 
 
 def _crop_tiles(ts: TileStack, cropper, aspect) -> TileStack:
     """Apply the prepared cropper's per-image rects at `aspect` scale."""
-    rects = [r.times(aspect) for r in cropper.intersection_rectangles]
-    corners, sizes = cropper.crop_rois(
-        [tuple(c) for c in ts.corners],
-        [tuple(s) for s in ts.sizes], aspect)
-    out = slice_stack(ts, [tuple(r) for r in rects])
-    return dataclasses.replace(out, corners=np.asarray(corners),
-                               sizes=np.asarray(sizes, np.int64))
+    rects, corners, sizes = crop_geometry(cropper, aspect, ts.corners,
+                                          ts.sizes)
+    return dataclasses.replace(slice_stack(ts, rects), corners=corners,
+                               sizes=sizes)
 
 
 def plan_composition(st, reg: Registration) -> CompositionPlan:
@@ -429,44 +408,27 @@ def plan_composition(st, reg: Registration) -> CompositionPlan:
         lir_aspect)
 
 
-def _stream_fits_budget(st, reg):
-    """Stream only when the monolithic accumulators fit the blend budget;
-    beyond it the batched pass's strips take over.
-
-    The estimate counts what `StreamComposite` allocates (the level sum of
-    the pyramid-aligned canvas from `_plan_blend`, the true channel count)
-    on the uncropped ROIs: equal to the streamed plan without crop, a
-    slight over-estimate with it (the safe direction). It is host work
-    between the LOW pass and the FINAL one, timed as a stage of its own
-    outside the `final/` stages: `composite/stream_budget`."""
-    with prof.stage_timer("composite/stream_budget"):
-        sizes, Ks, Rs, scale = _geometry(reg, Resolution.FINAL)
-        corners, dsizes = plan_warp_rois(
-            [tuple(map(int, s)) for s in sizes], Ks, Rs, scale,
-            st.warper.warper_type)
-        th = _round_up(int(dsizes[:, 1].max()))
-        tw = _round_up(int(dsizes[:, 0].max()))
-        p = _plan_blend(corners, dsizes, len(dsizes),
-                        st.blender.blender_type, st.blender.blend_strength,
-                        th, tw)
-        C = reg.uploader.channels
-        levels = p["nb"] + 1 if p["kind"] == "multiband" else 1
-        acc_bytes = sum((p["ph"] >> lv) * (p["pw"] >> lv) * (C + 1) * 4
-                        for lv in range(levels))
-        return acc_bytes <= compose.BLEND_BUDGET_BYTES
-
-
 def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
     """FINAL-resolution compositing: the panorama as a uint8 host array,
     or with fetch=False as a uint8 tensor on the card; None with
     timelapse, which writes one frame per image instead."""
     mesh = _mesh_of(st)
-    if (reg.uploader is not None and not st.timelapser.do_timelapse
-            and mesh is None and _stream_fits_budget(st, reg)):
-        pano = _composite_streamed(st, reg, plan)
-        return pano if fetch else torch.as_tensor(pano, device=st.device)
+    final = None
+    if reg.uploader is not None:
+        # the async branch (never under a mesh) plans its FINAL pass once
+        with prof.stage_timer("final/plan"):
+            final = FinalPlan(
+                *_geometry(reg, Resolution.FINAL), st.warper.warper_type,
+                st.cropper if plan.crop_rects is not None else None,
+                plan.lir_aspect, st.compensator, plan.seam_masks_low,
+                st.blender.blender_type, st.blender.blend_strength,
+                reg.uploader.channels)
+        if (not st.timelapser.do_timelapse
+                and stream_fits(final.blend, final.channels)):
+            pano = _composite_streamed(reg, final)
+            return pano if fetch else torch.as_tensor(pano, device=st.device)
     with prof.stage_timer("final/warp"):
-        fin = warp_resolution(st, reg, Resolution.FINAL)
+        fin = warp_resolution(st, reg, Resolution.FINAL, final)
         prof.fence(fin.data, fin.masks)
         # the originals have no further consumers: free them before the
         # blend allocates
@@ -512,75 +474,27 @@ def composite(st, reg: Registration, plan: CompositionPlan, fetch=True):
         return fetch_image(pano)
 
 
-def _composite_streamed(st, reg: Registration, plan: CompositionPlan):
-    """The FINAL pass per image (async branch).
+def _composite_streamed(reg: Registration, final):
+    """The FINAL pass per image (async branch), on its plan `final`.
 
-    Each image's resize -> warp -> crop -> gain -> seam resize -> blend
-    feed runs as soon as its upload lands (`Uploader.image`), through the
+    Each image's tile and seam (`final_tile`) are made and fed to the
+    blend as soon as its upload lands (`Uploader.image`), through the
     batched stages' own per-image code, so the panorama equals the batched
     pass's; after the last image only its feed, the banded collapse and
     the copy to the host remain. Returns the host panorama."""
-    n = len(reg.cameras)
-    up = reg.uploader
-    with prof.stage_timer("final/plan"):
-        sizes, Ks, Rs, scale = _geometry(reg, Resolution.FINAL)
-        sizes = [tuple(map(int, s)) for s in sizes]
-        wt = st.warper.warper_type
-        corners, dsizes = plan_warp_rois(sizes, Ks, Rs, scale, wt)
-        th = _round_up(int(dsizes[:, 1].max()))
-        tw = _round_up(int(dsizes[:, 0].max()))
-        crop = plan.crop_rects is not None
-        if crop:
-            rects = [tuple(r.times(plan.lir_aspect))
-                     for r in st.cropper.intersection_rectangles]
-            ccorn, csz = st.cropper.crop_rois(
-                [tuple(c) for c in corners], [tuple(s) for s in dsizes],
-                plan.lir_aspect)
-            fin_corners = np.asarray(ccorn)
-            fin_sizes = np.asarray(csz, np.int64)
-            cshape = crop_shape(rects, th, tw)
-            fth, ftw = cshape[:2]
-        else:
-            fin_corners, fin_sizes = np.asarray(corners), np.asarray(dsizes)
-            fth, ftw = th, tw
-        C = up.channels
-        gain_mode, gain_arrs = plan_gain_arrays(st.compensator, fin_sizes, n,
-                                                C)
-        lo, lo_sizes = plan.seam_masks_low
-        dev = lo.device
-        lsz = torch.as_tensor(_pad_sizes(lo_sizes, lo.shape[0]), device=dev)
-        fsz = torch.as_tensor(np.asarray(fin_sizes, np.int32), device=dev)
-        if gain_mode == "scalar":
-            gains = torch.as_tensor(gain_arrs, device=dev)
-        elif gain_mode == "map":
-            gmaps = [torch.as_tensor(a, device=dev) for a in gain_arrs]
+    dev = final.seams_low.device
+    with prof.stage_timer("final/stream"):
         # the column-frontier copy overlaps the card's work with the
         # panorama's trip to the host; on the CPU there is nothing to
         # overlap
-        stream = StreamComposite(fin_corners, fin_sizes,
-                                 st.blender.blender_type,
-                                 st.blender.blend_strength, fth, ftw, C,
+        stream = StreamComposite(final.blend, final.channels,
                                  frontier_fetch=dev.type == "cuda",
                                  device=dev)
-
-    with prof.stage_timer("final/stream"):
-        for i in range(n):
+        for i in range(len(final.sizes)):
             with prof.stage_timer("final/upload_wait"):
-                raw = up.image(i)
+                raw = reg.uploader.image(i)
             with prof.stage_timer("final/stream/warp"):
-                tile, mask = warp_single(raw, sizes[i], Ks[i], Rs[i],
-                                         corners[i], dsizes[i], scale, wt,
-                                         th, tw, channels=C)
-                if crop:
-                    tile, mask = slice_tiles(tile, mask, rects[i:i + 1],
-                                             *cshape)
-                if gain_mode == "scalar":
-                    tile = _gain_mul_kernel(tile, gains[i:i + 1])
-                elif gain_mode == "map":
-                    tile = _gain_map_kernel(tile,
-                                            *[g[i:i + 1] for g in gmaps])
-                seam = _seam_resize_kernel(lo[i:i + 1], lsz[i:i + 1], mask,
-                                           fsz[i:i + 1])
+                tile, seam = final_tile(final, i, raw)
                 prof.fence(tile, seam)
             with prof.stage_timer("final/stream/feed"):
                 stream.feed(i, tile[0], seam[0])

@@ -51,6 +51,14 @@ def _round_up(x, m=_BUCKET):
     return int(-(-x // m) * m)
 
 
+def pad_sizes(sizes, b):
+    """`sizes` ((w, h) each) over `b` batch slots, as a stack pads them:
+    the slots past the images (1, 1)."""
+    out = np.ones((b, 2), np.int32)
+    out[:len(sizes)] = np.asarray(sizes, np.int32)
+    return out
+
+
 def pad_batch(n, mesh):
     """Smallest padded batch length: a multiple of the mesh size (>= n)."""
     if mesh is None:
@@ -129,6 +137,16 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def empty_stack(sizes, chans, device):
+    """A stack for images of `sizes` ((w, h) each), padded as
+    `stack_images` pads; its data is left for the caller to write."""
+    sizes = np.asarray(sizes, np.int32).reshape(-1, 2)
+    data = torch.empty((len(sizes), _round_up(int(sizes[:, 1].max())),
+                        _round_up(int(sizes[:, 0].max())), chans),
+                       dtype=torch.float32, device=device)
+    return DeviceStack(data, sizes)
 
 
 def stack_images(imgs, device="cuda", mesh=None):

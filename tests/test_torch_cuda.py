@@ -1068,8 +1068,9 @@ def test_stream_composite_cuda_equals_blend_stack(cuda_device, kind,
     stack = _strip_stack("x", cuda_device)
     pano, mask = compose.blend_stack(stack, None, kind, 5)
     th, tw = stack.data.shape[1:3]
-    stream = compose.StreamComposite(stack.corners, stack.sizes, kind, 5,
-                                     th, tw, frontier_fetch=frontier,
+    p = compose._plan_blend(stack.corners, stack.sizes, len(stack.sizes),
+                            kind, 5, th, tw)
+    stream = compose.StreamComposite(p, frontier_fetch=frontier,
                                      device=cuda_device)
     for i in range(stack.data.shape[0]):
         stream.feed(i, stack.data[i], stack.masks[i])

@@ -1,14 +1,16 @@
 """The registration inputs made on the card (`ops/kernels/downscale.py`).
 
-On the CPU: the plain version, through `engine._card_downscale` with the
-uploader on the CPU, against `stack_images(_host_downscale(...))` bit for
-bit (data and sizes) at the cells' shapes, on ragged and odd sizes, gray
-views, a batch that mixes gray and colour, and taps that clamp at both
-edges, and once against the JAX package's host stacks; the wrapper's
-checks; the engine's choice of path (the card only on a CUDA device with
-uint8 views), the host path on the CPU and under a mesh with nothing
-counted, a CPU stitch forced through the card's branch equal to the host
-path's; and the benchmark's reader of the counter.
+On the CPU: the plain version, through `engine._downscale_landed` with
+the uploader on the CPU, against `stack_images(_host_downscale(...))` bit
+for bit (data and sizes) at the cells' shapes, on ragged and odd sizes,
+gray views, a batch that mixes gray and colour, and taps that clamp at
+both edges, and once against the JAX package's host stacks; the
+wrapper's checks; the engine's choice of path (uint8 views of one plane
+or three channels take `downscale` on every device), a CPU stitch that
+runs the plain version for uint8 views and the host path for float ones
+with nothing counted, the host path under a mesh, a CPU stitch forced
+onto the host path equal to the plain version's; and the benchmark's
+reader of the counter.
 
 On the card (`-m cuda`; this file imports the JAX package only inside its
 CPU tests, so it runs there too): the kernel's stacks against the host
@@ -93,7 +95,7 @@ def _host_stacks(views, med, low):
 def _card_stacks(views, med, low, device):
     up = Uploader(views, device=device)
     try:
-        return engine._card_downscale(up, views, med, low, device)
+        return engine._downscale_landed(up, views, med, low, device)
     finally:
         up.join()
 
@@ -203,13 +205,16 @@ def test_wrapper_on_the_cpu_runs_the_plain_version():
     assert downscale.launches == before and COUNTER not in counters
 
 
-@pytest.mark.parametrize("device,kind,on_card", [
+@pytest.mark.parametrize("device,kind,landed", [
     ("cuda", "colour", True), ("cuda:0", "gray", True),
-    ("cuda", "mixed", True), ("cpu", "colour", False),
-    ("cpu", "gray", False), ("cuda", "float", False),
+    ("cuda", "mixed", True), ("cpu", "colour", True),
+    ("cpu", "gray", True), ("cuda", "float", False),
     ("cuda", "rgba", False), ("cuda", "one channel", False)])
 def test_the_card_path_needs_a_cuda_device_and_uint8_views(device, kind,
-                                                           on_card):
+                                                           landed):
+    """The views choose the path, the device does not: uint8 views of one
+    plane or three channels go through `downscale` on the card and on the
+    CPU alike, the others through `_host_downscale`."""
     views = {"colour": [np.zeros((8, 8, 3), np.uint8)] * 2,
              "gray": [np.zeros((8, 8), np.uint8)] * 2,
              "mixed": [np.zeros((8, 8, 3), np.uint8), np.zeros((8, 8),
@@ -218,7 +223,7 @@ def test_the_card_path_needs_a_cuda_device_and_uint8_views(device, kind,
                        np.zeros((8, 8, 3), np.float32)],
              "rgba": [np.zeros((8, 8, 4), np.uint8)],
              "one channel": [np.zeros((8, 8, 1), np.uint8)]}[kind]
-    assert engine._downscales_on_card(device, views) is on_card
+    assert engine._downscalable(views) is landed
 
 
 @pytest.fixture(scope="module")
@@ -242,48 +247,59 @@ def _stitch_counted(st, imgs):
 
 
 def test_cpu_stitch_downscales_on_the_host(views, monkeypatch):
-    calls = []
-    host = engine._host_downscale
+    """A uint8 stitch on the CPU runs `downscale` (its plain version) on
+    each view as it lands; a float stitch runs `_host_downscale`. Neither
+    counts: the counter is the card's."""
+    host, landed = [], []
+    real_host, real_downscale = engine._host_downscale, engine.downscale
     monkeypatch.setattr(engine, "_host_downscale",
-                        lambda *a: calls.append(1) or host(*a))
+                        lambda *a: host.append(1) or real_host(*a))
+    monkeypatch.setattr(engine, "downscale",
+                        lambda *a: landed.append(1) or real_downscale(*a))
     _, counters = _stitch_counted(
         Stitcher(device="cpu", medium_megapix=0.1), views)
-    assert calls == [1] and COUNTER not in counters
+    assert landed == [1] * len(views) and host == []
+    assert COUNTER not in counters
     floats = [v.astype(np.float32) for v in views]
     _, counters = _stitch_counted(
         Stitcher(device="cpu", medium_megapix=0.1), floats)
-    assert calls == [1, 1] and COUNTER not in counters
+    assert landed == [1] * len(views) and host == [1]
+    assert COUNTER not in counters
 
 
 def test_card_branch_forced_on_the_cpu_equals_the_host_path(views,
                                                             monkeypatch):
-    """The async branch through `_card_downscale` (the plain version on
-    the CPU): the same panorama as through the host downscale."""
-    want, _ = _stitch_counted(Stitcher(device="cpu", medium_megapix=0.1),
-                              views)
-    made = []
-    card = engine._card_downscale
-    monkeypatch.setattr(engine, "_downscales_on_card", lambda *a: True)
-    monkeypatch.setattr(engine, "_card_downscale",
-                        lambda *a: made.append(1) or card(*a))
+    """The async branch through `_downscale_landed` (the plain version on
+    the CPU), then the same stitch forced onto the host downscale: the
+    same panorama."""
+    made, host = [], []
+    landed, real_host = engine._downscale_landed, engine._host_downscale
+    monkeypatch.setattr(engine, "_downscale_landed",
+                        lambda *a: made.append(1) or landed(*a))
     got, counters = _stitch_counted(
         Stitcher(device="cpu", medium_megapix=0.1), views)
     assert made == [1]
     # the plain version counts nothing: the counter is the card's
     assert COUNTER not in counters
+    monkeypatch.setattr(engine, "_downscalable", lambda *a: False)
+    monkeypatch.setattr(engine, "_host_downscale",
+                        lambda *a: host.append(1) or real_host(*a))
+    want, _ = _stitch_counted(Stitcher(device="cpu", medium_megapix=0.1),
+                              views)
+    assert made == [1] and host == [1]
     np.testing.assert_array_equal(got, want)
 
 
 def mesh_rank(mesh, imgs):
-    """A mesh registration with the card's path offered: larger views are
-    resized on the host (`_host_resize`) and nothing is counted."""
+    """A mesh registration with the landed downscale offered: larger views
+    are resized on the host (`_host_resize`) and nothing is counted."""
     resized, made = [], []
     resize = engine._host_resize
     engine._host_resize = lambda im, size: (
         resized.append(tuple(int(v) for v in size)), resize(im, size))[1]
-    engine._downscales_on_card = lambda *a: True
-    card = engine._card_downscale
-    engine._card_downscale = lambda *a: made.append(1) or card(*a)
+    engine._downscalable = lambda *a: True
+    landed = engine._downscale_landed
+    engine._downscale_landed = lambda *a: made.append(1) or landed(*a)
     profiling.reset()
     profiling.enable()
     try:
@@ -362,7 +378,7 @@ def test_stitch_on_the_card_equals_the_host_downscale(cuda_device,
                                       cuda_device)
     got, counters = _stitch_counted(Stitcher(), imgs)
     assert counters.get(COUNTER) == len(imgs)
-    monkeypatch.setattr(engine, "_downscales_on_card", lambda *a: False)
+    monkeypatch.setattr(engine, "_downscalable", lambda *a: False)
     want, counters = _stitch_counted(Stitcher(), imgs)
     assert COUNTER not in counters
     assert got.dtype == np.uint8 and got.shape == want.shape

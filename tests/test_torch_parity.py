@@ -64,6 +64,14 @@ DEPARTURES = {
         "and none of the reference's `_fast_warp_*` faults (ADVICE.md)",
     "compose:blend_stack(mesh)":
         "the stack carries its own mesh",
+    **{f"compose:warp_stack_streamed({p})":
+       "the port plans the FINAL pass once and hands the plan over "
+       "(`compose.FinalPlan`)" for p in ("sizes", "Ks", "Rs", "scale",
+                                          "warper_type")},
+    **{f"compose:StreamComposite({p})":
+       "built from the blend plan its caller made (`FinalPlan.blend`), "
+       "not planned again" for p in ("corners", "sizes", "blender_type",
+                                     "blend_strength", "th", "tw")},
     "ops.ransac:ransac_homography(seed)":
         "the port batches pairs and takes their `seeds`",
     "ops.ransac:ransac_affine_partial(seed)":

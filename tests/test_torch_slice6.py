@@ -8,6 +8,8 @@ per image behind the uploader. With the JAX package's cameras handed over:
 - `Stitcher()` through the streamed branch: crop rects equal, every value
   within 1 LSB, at least 99.99% equal;
 - the port's batched branch on the same plan equals its streamed branch;
+- the FINAL pass plans its warp ROIs and its blend once, and decides to
+  stream on its cropped blend plan as the uncropped estimate did;
 - gray inputs with the defaults: within 1 LSB, at least 99.99% equal.
 
 With the blend budget forced down (`compose.BLEND_BUDGET_BYTES` here,
@@ -163,6 +165,86 @@ def test_monolithic_stream_through_the_engine_equal_jax(monkeypatch, images,
     _close(pano, ref)
 
 
+def test_final_pass_plans_once(monkeypatch, images):
+    """One streamed stitch's FINAL pass (`engine.composite`) plans the
+    warp ROIs once and the blend once; the LOW crop's paste blend, before
+    it, plans on its own and is not counted."""
+    counts, inside = {"plan_warp_rois": 0, "_plan_blend": 0}, []
+
+    def counted(name, real):
+        def spy(*args, **kwargs):
+            counts[name] += len(inside)
+            return real(*args, **kwargs)
+        return spy
+
+    # the engine's own binding too, where it imports the name
+    for name in counts:
+        for module in (compose, engine):
+            if hasattr(module, name):
+                monkeypatch.setattr(module, name,
+                                    counted(name, getattr(module, name)))
+    real_composite = engine.composite
+
+    def composite(*args, **kwargs):
+        inside.append(1)
+        try:
+            return real_composite(*args, **kwargs)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(engine, "composite", composite)
+    streamed = _spy(monkeypatch, engine, "_composite_streamed")
+    Stitcher(device="cpu").stitch(images)
+    assert streamed == ["_composite_streamed"]
+    assert counts == {"plan_warp_rois": 1, "_plan_blend": 1}
+
+
+def _uncropped_estimate(st, reg):
+    """The streaming estimate that the FINAL pass made before it was
+    planned once: the accumulators' level sum for the blend plan of the
+    uncropped warp ROIs, in bytes."""
+    sizes, Ks, Rs, scale = engine._geometry(reg, engine.Resolution.FINAL)
+    corners, dsizes = compose.plan_warp_rois(
+        [tuple(map(int, s)) for s in sizes], Ks, Rs, scale,
+        st.warper.warper_type)
+    th, tw = (-(-int(dsizes[:, a].max()) // 64) * 64 for a in (1, 0))
+    p = compose._plan_blend(corners, dsizes, len(dsizes),
+                            st.blender.blender_type,
+                            st.blender.blend_strength, th, tw)
+    levels = p["nb"] + 1 if p["kind"] == "multiband" else 1
+    return sum((p["ph"] >> lv) * (p["pw"] >> lv)
+               * (reg.uploader.channels + 1) * 4 for lv in range(levels))
+
+
+@pytest.mark.parametrize("canvas", ["rotation", "scan"])
+def test_stream_decision_as_the_uncropped_estimate(monkeypatch, images,
+                                                   jax_default, canvas):
+    """`compose.stream_fits` on the cropped blend plan decides as the
+    uncropped estimate did, at the default budget and at the 1-byte budget
+    of the strip and monolithic tests through the engine: the rotation
+    set with the JAX package's cameras (the default and monolithic
+    tests' canvas) and the scan of 8 crops (the strip test's)."""
+    if canvas == "rotation":
+        st, imgs = Stitcher(device="cpu"), images
+    else:
+        st = AffineStitcher(device="cpu", medium_megapix=0.1)
+        imgs, _ = affine_set(n=8, size=(480, 360))
+    seen = []
+    fits = engine.stream_fits
+    monkeypatch.setattr(engine, "stream_fits", lambda p, C: seen.append(
+        (p, C)) or fits(p, C))
+    reg = engine.register(st, imgs)
+    if canvas == "rotation":
+        reg = _with_cameras(st, reg, jax_default[0])
+    before = _uncropped_estimate(st, reg)
+    engine.composite(st, reg, engine.plan_composition(st, reg))
+    [(p, C)] = seen
+    assert 0 < before < compose.BLEND_BUDGET_BYTES
+    for budget in (compose.BLEND_BUDGET_BYTES, 1):
+        monkeypatch.setattr(compose, "BLEND_BUDGET_BYTES", budget)
+        assert compose.stream_fits(p, C) is (before <= budget)
+
+
 def test_gray_defaults_with_jax_cameras(images):
     """2-D inputs: the uploader's one channel through the streamed FINAL
     pass, against the JAX package with its cameras."""
@@ -198,7 +280,7 @@ def test_profiler_stage_names(images):
             "registration/wave_correct", "low/warp", "low/crop",
             "low/crop/paste", "low/crop/flood_fill", "low/crop/lir",
             "low/crop/slice", "low/exposure_feed", "low/seam_find",
-            "composite/stream_budget", "final/plan", "final/stream",
+            "final/plan", "final/stream",
             "final/upload_wait", "final/stream/warp", "final/stream/feed",
             "final/blend",
             "transfer/originals_stream"} <= set(report)

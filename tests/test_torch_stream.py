@@ -1,8 +1,9 @@
 """The streamed and strip composite against the JAX package.
 
-`StreamComposite` (with and without the column-frontier copy), the X and
-Y strips and the streamed monolithic blend of the port's
-`compose.blend_stack`, each against the JAX package's on the geometries of
+`StreamComposite` (built from the stack's blend plan, with and without
+the column-frontier copy), the X and Y strips and the streamed
+monolithic blend of the port's `compose.blend_stack`, each against the
+JAX package's on the geometries of
 `tests/test_compose.py`, the strips and the monolithic stream with the
 JAX package's budget forced down through `STITCHING_TPU_BLEND_BUDGET` and
 the port's through `budget=`. The streamed composite runs the batched
@@ -81,6 +82,13 @@ def _stacks(name):
     return port, torch.as_tensor(seams), ref, jnp.asarray(seams)
 
 
+def _blend_plan(port, kind, th, tw):
+    """The blend plan a `StreamComposite` of the stack's tiles is built
+    from, at strength 5."""
+    return compose._plan_blend(port.corners, port.sizes, len(port.sizes),
+                               kind, 5, th, tw)
+
+
 def _host(x):
     return x if isinstance(x, np.ndarray) else np.asarray(
         x.numpy() if isinstance(x, torch.Tensor) else x)
@@ -126,9 +134,8 @@ def test_stream_composite_equals_blend_stack_and_jax(kind, name, frontier):
     port, seams, ref, ref_seams = _stacks(name)
     th, tw = int(port.data.shape[1]), int(port.data.shape[2])
     pano_b, mask_b = compose.blend_stack(port, seams, kind, 5)
-    stream = compose.StreamComposite(port.corners, port.sizes, kind, 5, th,
-                                     tw, frontier_fetch=frontier,
-                                     device="cpu")
+    stream = compose.StreamComposite(_blend_plan(port, kind, th, tw),
+                                     frontier_fetch=frontier, device="cpu")
     for i in range(len(port.sizes)):
         stream.feed(i, port.data[i], seams[i])
     pano_s, mask_s = stream.finish()
@@ -153,9 +160,8 @@ def test_stream_composite_row_bands_equal_one_collapse():
     th, tw = int(port.data.shape[1]), int(port.data.shape[2])
     out = []
     for banded in (False, True):
-        stream = compose.StreamComposite(port.corners, port.sizes,
-                                         "multiband", 5, th, tw,
-                                         device="cpu")
+        stream = compose.StreamComposite(
+            _blend_plan(port, "multiband", th, tw), device="cpu")
         for i in range(len(port.sizes)):
             stream.feed(i, port.data[i], seams[i])
         out.append(stream.finish(stream_fetch=banded))
