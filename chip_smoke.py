@@ -79,10 +79,14 @@
    FINAL calls; the region count on every LOW panorama mask a path with
    the crop on planned from, also against the host flood fill it
    replaces; the MEDIUM/LOW downscale, against the host downscale it
-   replaces, bit for bit, at 6 views of 4032x3024 and 8 of 1600x1200),
+   replaces, bit for bit, at 6 views of 4032x3024 and 8 of 1600x1200;
+   the graph cut's push-relabel at the graph-cut cell's two levels, 14
+   pairs at 64 x 64 and in the band at 256 x 256, cut and iterations
+   equal to the plain loop's on the card),
    and times kernel, plain version (for the region count: the host flood
-   fill, for the downscale: the host downscale and upload of a view, on
-   the host's clock) and, where one exists, a
+   fill, for the downscale: the host downscale and upload of a view, for
+   the graph cut: the plain loop, which reads the host, on the host's
+   clock) and, where one exists, a
    PyTorch library call computing the same function (device time per
    call from a CUDA graph replay; the kernel wrapper's CUDA-event time,
    host launch included, beside it), and the launch floor: an empty
@@ -718,6 +722,110 @@ def check_downscale(dev):
                           **times)
     return dict(max_abs_err=0.0, timed_at="12mp", by_shape=rows,
                 **{k: v for k, v in rows["12mp"].items() if k != "shape"})
+
+
+# the graph-cut cell's window (`pano-gc.rot6-12mp`: 14 pairs in one 256 x
+# 256 window, cut first at 64 x 64, then in a band at full size)
+CUT_PAIRS, CUT_SIDE = 14, 256
+
+
+def cut_levels(dev, pairs=CUT_PAIRS, side=CUT_SIDE, seed=21):
+    """The grids `seam_cut_pair` hands `grid_min_cut` for `pairs` seeded
+    side x side overlaps (noisy content, a corridor where the views agree,
+    each view's own 25 px strip at either side): [(cap_dir, s_cap, t_cap)]
+    on `dev`, the coarse level first, then the full-size level with
+    everything outside the band around the coarse seam pinned."""
+    from stitching_tpu_torch.ops import graphcut
+
+    rng = np.random.RandomState(seed)
+    img_i = rng.uniform(0, 255, (pairs, side, side, 3)).astype(np.float32)
+    img_j = np.clip(img_i + rng.uniform(-90, 90, img_i.shape), 0,
+                    255).astype(np.float32)
+    for p in range(pairs):
+        at = rng.randint(side // 3, 2 * side // 3)
+        img_j[p, :, at:at + 12] = img_i[p, :, at:at + 12]
+    only_i = np.zeros((pairs, side, side), bool)
+    only_j = np.zeros((pairs, side, side), bool)
+    only_i[:, :, :25] = True
+    only_j[:, :, -25:] = True
+    args = [torch.from_numpy(a).to(dev)
+            for a in (img_i, img_j, ~(only_i | only_j), only_i, only_j)]
+    cut = graphcut.grid_min_cut
+    levels = []
+
+    def keep(cap_dir, s_cap, t_cap, **kwargs):
+        levels.append((cap_dir, s_cap, t_cap))
+        return cut(cap_dir, s_cap, t_cap, **kwargs)
+
+    graphcut.grid_min_cut = keep
+    try:
+        graphcut.seam_cut_pair(*args, False)
+    finally:
+        graphcut.grid_min_cut = cut
+    return levels
+
+
+def l2_bytes_per_s(dev, nbytes=12 << 20):
+    """Bytes a second of a copy whose source and destination (2 x 12 MB)
+    stay in the card's 50 MB L2, from a CUDA graph replay: the L2 rate a
+    plain streaming kernel reaches."""
+    a = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+    b = torch.empty_like(a)
+    return 2 * nbytes / (graph_ms(lambda: b.copy_(a), 50) * 1e-3)
+
+
+def check_graphcut(dev):
+    """`push_relabel` (one launch a graph-cut level) at the cell's two
+    levels against the plain version (`ops/graphcut._push_relabel`) on the
+    same grids on the card: the cut bit for bit and the longest loop's
+    iterations. Timed per level: the kernel (a CUDA graph replay of the
+    launch), its launch floor, and the plain version, which reads the
+    host, on the host's clock. The bounds are one pass over the state
+    (10 floats a pixel) an iteration of the longest loop, at the HBM rate
+    and at the L2 rate of a copy that stays in L2. No PyTorch call cuts a
+    graph: no library column."""
+    from stitching_tpu_torch.ops import graphcut
+    from stitching_tpu_torch.ops.kernels.push_relabel import (
+        LAUNCHES, SCRATCH_PER_PIXEL, cluster_size, push_relabel)
+
+    l2_rate = l2_bytes_per_s(dev)
+    rows = {}
+    for name, (cap, s, t) in zip(("coarse", "fine"), cut_levels(dev)):
+        P, h, w = s.shape
+        src, iters = push_relabel(cap, s, t, 2000, 64)
+        want, stats = graphcut._push_relabel(cap, s, t, 2000, 64)
+        torch.cuda.synchronize()
+        n_it = stats["iterations"]
+        if not torch.equal(src, want) or int(iters.max()) != n_it:
+            raise AssertionError(
+                f"push_relabel at the {name} level {P} x {h}x{w}: the cut or "
+                f"the iterations ({int(iters.max())} against {n_it}) differ "
+                "from the plain version's")
+
+        def kernel():
+            push_relabel(cap, s, t, 2000, 64)
+
+        def plain():
+            graphcut._push_relabel(cap, s, t, 2000, 64)
+
+        times = kernel_times(
+            kernel, plain, launched_kernels(kernel, LAUNCHES, "push_relabel"),
+            iters=10, plain_on_host=True)
+        nbytes = n_it * SCRATCH_PER_PIXEL * 4 * P * h * w
+        bound, both = bounds_of(nbytes, 0.0, FP32_FLOPS_PER_S)
+        l2_ms = nbytes / l2_rate * 1e3
+        print(f"push_relabel at the {name} level {P} x {h}x{w} (cluster "
+              f"{cluster_size(h, w)}, {n_it} iterations, pairs' "
+              f"{sorted(iters.tolist())}) equal to the plain version: "
+              f"{times_text(times)} (plain: the PyTorch loop on the card, "
+              f"host clock; no library call) bound_ms one pass a step "
+              f"hbm={both['bytes']:.5f} l2={l2_ms:.5f} (l2 rate "
+              f"{l2_rate / 1e12:.2f} TB/s)", flush=True)
+        rows[name] = dict(shape=[P, h, w], iterations=n_it,
+                          cluster=cluster_size(h, w), l2_bound_ms=l2_ms,
+                          **bound, **times)
+    return dict(max_abs_err=0.0, timed_at="fine", by_shape=rows,
+                **{k: v for k, v in rows["fine"].items() if k != "shape"})
 
 
 # pairs of columns holding the same target row: one thread's two columns
@@ -1948,6 +2056,7 @@ def main():
         bilinear_sample)
     from stitching_tpu_torch.ops.kernels.components import count_components
     from stitching_tpu_torch.ops.kernels.downscale import downscale
+    from stitching_tpu_torch.ops.kernels.push_relabel import push_relabel
     from stitching_tpu_torch.ops.kernels.two_nn import two_nn, two_nn_pairs
 
     t_start = time.time()
@@ -1980,7 +2089,7 @@ def main():
     wrappers = {"two_nn_pairs": two_nn_pairs, "two_nn": two_nn,
                 "bilinear_sample": bilinear_sample,
                 "count_components": count_components,
-                "downscale": downscale}
+                "downscale": downscale, "push_relabel": push_relabel}
     # the crop planner's region counts, kept per path (a path's launch
     # expectations leave them out: they follow where the crop is on)
     rec_cc = Recorder(cropper.count_components)
@@ -2504,6 +2613,7 @@ def main():
         "count_components": check_components(cc_calls,
                                              ("default", "affine")),
         "downscale": check_downscale(dev),
+        "push_relabel": check_graphcut(dev),
     }
     stitches = ("slice1", "slice2", "default", "gc", "surfaces", "affine")
     paths = {"two_nn_pairs (binary)": ("two_nn_pairs",
@@ -2523,7 +2633,8 @@ def main():
              "count_components": ("count_components", ("default",
                                                        "affine")),
              "downscale": ("downscale", stitches + tuple(det_calls)
-                           + ("cli",))}
+                           + ("cli",)),
+             "push_relabel": ("push_relabel", ("gc",))}
     meta = {
         "two_nn_pairs (binary)": (
             "stitching_tpu_torch/csrc/two_nn.cu",
@@ -2554,6 +2665,10 @@ def main():
             "stitching_tpu_torch/csrc/downscale.cu",
             "none: the JAX package's _host_downscale resizes on the host "
             "(stitching_tpu/engine.py)"),
+        "push_relabel": (
+            "stitching_tpu_torch/csrc/push_relabel.cu",
+            "none: the JAX package's grid_min_cut is a plain lax.while_loop "
+            "(stitching_tpu/ops/graphcut.py)"),
     }
     rows = []
     for name, res in results.items():
@@ -2566,7 +2681,8 @@ def main():
                          launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          status=("added" if name in ("count_components",
-                                                     "downscale")
+                                                     "downscale",
+                                                     "push_relabel")
                                  else "ported"), **res))
     total = time.time() - t_start
     print(f"total {total:.1f} s", flush=True)

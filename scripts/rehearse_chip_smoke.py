@@ -5,7 +5,8 @@
 Runs `chip_smoke.main()` with the port on the CPU: `torch.cuda` and the
 CUDA-only measurement aids (kernel builds, the boundary phase, graph-replay
 timings, launch capture, the profiler, the region count's check, which
-needs masks on the card) are stubbed, the launch counts are
+needs masks on the card, and the graph cut's, whose kernel takes no grid
+on the CPU) are stubbed, the launch counts are
 not checked (a CPU tensor runs a kernel's plain version, which does not
 count), the 8-view workloads shrink to 3 views at the bench's spacing
 between neighbours and 3 scan crops, and the giant canvas and the strip
@@ -86,6 +87,10 @@ def main():
     cs.launched_kernels = lambda fn, expect, what: expect
     # a mask on the CPU is flood filled on the host: no region count
     cs.check_components = lambda by_path, timed: dict(
+        max_abs_err=0.0, bound_ms=0.0, bound_by="bytes",
+        **cs.kernel_times())
+    # a grid on the CPU runs the plain loop: no push-relabel kernel
+    cs.check_graphcut = lambda dev: dict(
         max_abs_err=0.0, bound_ms=0.0, bound_by="bytes",
         **cs.kernel_times())
     cs.two_nn_launches = lambda *args, **kwargs: 1

@@ -13,9 +13,14 @@ push-relabel on the 4-connected pixel grid:
 - the source side of the cut is the set of pixels that cannot reach the
   sink in the residual graph (the same BFS).
 
+Grids on the card go to one CUDA kernel a level
+(`ops/kernels/push_relabel.py`), in which each pair runs its own loop to
+its own end and the host reads one number. Grids on the CPU run
+`_push_relabel`, the plain version, which the kernel equals exactly.
+
 The reference's vmapped `while_loop` runs until no pair is active and
-freezes the state of a pair once its own loop condition is false; here
-each iteration selects the new state only for the pairs still active, so
+freezes the state of a pair once its own loop condition is false; the
+plain version selects the new state only for the pairs still active, so
 every pair's result is the one its own loop gives. The host reads whether
 any pair is still active once every `CHECK_EVERY` iterations (capped so
 the loop stops at exactly `max_iters`), and the BFS's `changed` flag once
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import profiling as prof
+from .kernels.push_relabel import LAUNCHES, push_relabel
 
 INF = 1e18
 _BIG_TERM = 1e8
@@ -87,21 +93,42 @@ def grid_min_cut(cap_dir, s_cap, t_cap, *, max_iters=2000,
 
     Returns (src_side (P, H, W) bool, stats): the pixels on the source side
     of each cut, and a dict with `iterations` (the reference's loop
-    length: the most iterations any pair ran), `relabels` (global relabels)
-    and `host_reads` (device-to-host reads of the loop and its BFS).
+    length: the most iterations any pair ran), `relabels` (the global
+    relabels of that loop), `host_reads` (device-to-host reads of the loop
+    and its BFS) and `launches` (kernel launches: 1 on the card, 0 on the
+    CPU).
 
     Each call is a span `low/seam_find/cut` (it ends in a host read, so
     its fence adds no sync) and adds to the counters `gc/levels` (1),
-    `gc/iterations` and `gc/host_reads` (its stats).
+    `gc/iterations`, `gc/host_reads` and `gc/cut_launches` (its stats).
     """
     with prof.stage_timer("low/seam_find/cut"):
-        src_side, stats = _push_relabel(cap_dir, s_cap, t_cap, max_iters,
-                                        global_relabel_every)
+        if s_cap.device.type == "cpu":
+            src_side, stats = _push_relabel(cap_dir, s_cap, t_cap,
+                                            max_iters, global_relabel_every)
+        else:
+            src_side, stats = _push_relabel_card(
+                cap_dir, s_cap, t_cap, max_iters, global_relabel_every)
         prof.fence(src_side)
     prof.count("gc/levels")
     prof.count("gc/iterations", stats["iterations"])
     prof.count("gc/host_reads", stats["host_reads"])
+    prof.count("gc/cut_launches", stats["launches"])
     return src_side, stats
+
+
+def _push_relabel_card(cap_dir, s_cap, t_cap, max_iters,
+                       global_relabel_every):
+    """The level in one launch; the host reads the longest loop's length.
+    That loop's global relabels come at its iterations 0, every, 2 every,
+    ... below its length."""
+    src_side, iters = push_relabel(
+        cap_dir.to(torch.float32).contiguous(), s_cap.contiguous(),
+        t_cap.contiguous(), max_iters, global_relabel_every)
+    n = int(iters.max())
+    return src_side, dict(iterations=n,
+                          relabels=-(-n // global_relabel_every),
+                          host_reads=1, launches=LAUNCHES)
 
 
 def _push_relabel(cap_dir, s_cap, t_cap, max_iters, global_relabel_every):
@@ -117,7 +144,7 @@ def _push_relabel(cap_dir, s_cap, t_cap, max_iters, global_relabel_every):
     res = cap_dir.to(torch.float32)
     height = torch.zeros((P, h, w), dtype=torch.float32, device=dev)
     iters = torch.zeros((P,), dtype=torch.int64, device=dev)
-    stats = dict(iterations=0, relabels=0, host_reads=0)
+    stats = dict(iterations=0, relabels=0, host_reads=0, launches=0)
 
     def drain(excess, t_res):
         amt = torch.minimum(excess, t_res)

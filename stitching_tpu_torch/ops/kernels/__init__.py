@@ -47,6 +47,9 @@ ENTRIES = {
     # then each output's slot, table, padded and true sizes
     "downscale_view": ("downscale", [_P, _I, _I] + [_P] * 2 + [_I] * 4
                        + [_P] * 2 + [_I] * 5 + [_P]),
+    # a graph-cut level: the three grids, scratch, cut and iterations, then
+    # pairs, h, w, max_iters, relabel_every and the cluster's CTAs
+    "push_relabel": ("push_relabel", [_P] * 6 + [_I] * 6 + [_P]),
     # measurement aids: empty launches, the floor under every kernel's time;
     # and a stream capture that counts what one call launches (`capture_end`
     # returns the count, or minus a cudaError_t)

@@ -779,6 +779,129 @@ def test_seam_cut_pair_coarse_to_fine_cuda_equals_cpu(cuda_device,
     assert torch.equal(got.cpu(), seam_cut_pair(*args, use_grad))
 
 
+def _pair_grids(P, h, w, seed, frozen=()):
+    """P seeded grids of h x w: random edge capacities, the left column
+    tied to the source and the right one to the sink, a tenth of the
+    pixels with small terminal capacities and a few with pins as large as
+    the seams' band pins; the pairs in `frozen` have equal terminal
+    capacities, so their loops end before their first iteration."""
+    rng = np.random.RandomState(seed)
+    cap = rng.uniform(0.1, 2.0, (P, 4, h, w)).astype(np.float32)
+    cap[:, 0, :, -1] = 0
+    cap[:, 1, :, 0] = 0
+    cap[:, 2, -1, :] = 0
+    cap[:, 3, 0, :] = 0
+    s = np.zeros((P, h, w), np.float32)
+    t = np.zeros((P, h, w), np.float32)
+    s[:, :, 0] = 100.0
+    t[:, :, -1] = 100.0
+    s += (rng.rand(P, h, w) < 0.1) * rng.uniform(0, 3, (P, h, w))
+    t += (rng.rand(P, h, w) < 0.1) * rng.uniform(0, 3, (P, h, w))
+    s[rng.rand(P, h, w) < 0.01] = 1e8
+    t[rng.rand(P, h, w) < 0.01] = 1e8
+    for p in frozen:
+        t[p] = s[p]
+    return [torch.tensor(a.astype(np.float32)) for a in (cap, s, t)]
+
+
+def _kernel_equals_plain(dev, grids, max_iters=2000, every=64):
+    """The kernel's cut and each pair's iterations against the plain loop
+    on the CPU: the batch's cut bit for bit, its longest loop, and each
+    pair's own loop run alone."""
+    from stitching_tpu_torch.ops import graphcut
+    from stitching_tpu_torch.ops.kernels.push_relabel import push_relabel
+
+    src, iters = push_relabel(*(g.to(dev) for g in grids), max_iters, every)
+    torch.cuda.synchronize()
+    want, stats = graphcut._push_relabel(*grids, max_iters, every)
+    assert torch.equal(src.cpu(), want)
+    iters = iters.cpu().tolist()
+    assert max(iters) == stats["iterations"]
+    for p, n in enumerate(iters):
+        alone = graphcut._push_relabel(*(g[p:p + 1] for g in grids),
+                                       max_iters, every)[1]
+        assert n == alone["iterations"], (p, iters)
+    return iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3, 14])
+@pytest.mark.parametrize("h,w", [(16, 16), (64, 64), (80, 96), (37, 53),
+                                 (131, 97), (256, 256)])
+def test_push_relabel_cuda_equals_plain(cuda_device, P, h, w):
+    """Seeded grids of every shape, one, three and fourteen pairs a
+    launch, the second pair frozen from the start beside live ones."""
+    grids = _pair_grids(P, h, w, seed=P * 1000 + h + w,
+                        frozen=(1,) if P > 1 else ())
+    iters = _kernel_equals_plain(cuda_device, grids)
+    assert max(iters) > 0
+    if P > 1:
+        assert iters[1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iters", [1, 63, 64, 65])
+def test_push_relabel_cuda_stops_at_max_iters(cuda_device, max_iters):
+    """Loops cut short around the global relabel's period (64): each
+    stops at exactly `max_iters`, with the plain loop's cut."""
+    grids = _pair_grids(3, 37, 53, seed=7)
+    iters = _kernel_equals_plain(cuda_device, grids, max_iters=max_iters)
+    assert iters == [max_iters] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_push_relabel_cuda_any_cluster_size(cuda_device, monkeypatch,
+                                            cluster):
+    """Every cluster width on one grid, each CTA's share ending inside a
+    row, so that pushes, heights and the BFS cross between the CTAs."""
+    from stitching_tpu_torch.ops.kernels import push_relabel as pr
+
+    grids = _pair_grids(3, 61, 47, seed=11, frozen=(2,))
+    monkeypatch.setattr(pr, "PIXELS_PER_CTA", -(-61 * 47 // cluster))
+    assert pr.cluster_size(61, 47) == cluster
+    _kernel_equals_plain(cuda_device, grids)
+
+
+@pytest.mark.cuda
+def test_cut_launches_one_a_level(cuda_device):
+    """`grid_min_cut` on the card: one launch and one host read a level,
+    counted in `gc/cut_launches` and `gc/host_reads`; the coarse-to-fine
+    pair cut runs two levels."""
+    from stitching_tpu_torch import profiling
+    from stitching_tpu_torch.ops import graphcut
+    from stitching_tpu_torch.ops.kernels.push_relabel import push_relabel
+
+    grids = [g.to(cuda_device) for g in _pair_grids(3, 40, 56, seed=3)]
+    rng = np.random.RandomState(5)
+    img = torch.tensor(rng.uniform(0, 255, (2, 128, 160, 3)),
+                       dtype=torch.float32, device=cuda_device)
+    only_i = torch.zeros((2, 128, 160), dtype=torch.bool, device=cuda_device)
+    only_j = torch.zeros_like(only_i)
+    only_i[:, :, :20] = True
+    only_j[:, :, -20:] = True
+    before = push_relabel.launches
+    profiling.reset()
+    profiling.enable()
+    try:
+        _, stats = graphcut.grid_min_cut(*grids)
+        one = profiling.get_counters()
+        profiling.reset()
+        graphcut.seam_cut_pair(img, img.flip(2), ~(only_i | only_j), only_i,
+                               only_j, False)
+        two = profiling.get_counters()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert stats["launches"] == stats["host_reads"] == 1
+    assert stats["relabels"] == -(-stats["iterations"] // 64)
+    assert one["gc/cut_launches"] == one["gc/host_reads"] == 1
+    assert one["gc/levels"] == 1
+    assert two["gc/cut_launches"] == two["gc/host_reads"] == 2
+    assert two["gc/levels"] == 2
+    assert push_relabel.launches == before + 3
+
+
 @pytest.mark.cuda
 def test_ransac_affine_partial_cuda_equals_cpu(cuda_device):
     from stitching_tpu_torch.ops.ransac import ransac_affine_partial

@@ -11,7 +11,8 @@ gc_reference.py` (float64, an exact max-flow, no iteration cap).
 - two controls that must fail those tolerances: the port's loop cut to
   16 iterations, and the reference with its capacities in bfloat16;
 - the span `low/seam_find/cut` and the counters `gc/levels`,
-  `gc/iterations` and `gc/host_reads` of a traced stitch;
+  `gc/iterations`, `gc/host_reads` and `gc/cut_launches` of a traced
+  stitch, and the benchmark's reader of the last;
 - on the card (`-m cuda`), one view set of the cell `pano-gc.rot6-12mp`
   at full size (`benchmark/gc_check.py`).
 
@@ -30,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -272,7 +274,8 @@ def test_bfloat16_fails_on_seams(layout, monkeypatch):
 # Tracing, and what the reference imports
 # ---------------------------------------------------------------------------
 
-GC_COUNTERS = ("gc/levels", "gc/iterations", "gc/host_reads")
+GC_COUNTERS = ("gc/levels", "gc/iterations", "gc/host_reads",
+               "gc/cut_launches")
 
 
 def traced_stitch(finder):
@@ -312,6 +315,40 @@ def test_traced_gc_stitch_records_the_cut():
         assert counters["gc/" + name] == sum(lv["stats"][name]
                                              for lv in levels)
     assert counters["gc/host_reads"] > 0
+
+
+def test_traced_cpu_cut_runs_the_plain_loop():
+    """On the CPU each level runs the plain loop: no kernel launch, and
+    its host reads: at least one of the loop's end, one of each global
+    relabel's BFS, one of the last BFS and one of the iterations."""
+    _, counters, levels = traced_stitch("gc_color")
+    assert counters["gc/cut_launches"] == 0
+    assert all(lv["stats"]["launches"] == 0 for lv in levels)
+    assert counters["gc/host_reads"] == sum(lv["stats"]["host_reads"]
+                                            for lv in levels)
+    assert all(lv["stats"]["host_reads"] >= lv["stats"]["relabels"] + 3
+               for lv in levels)
+
+
+def test_benchmark_reader_counts_cut_launches(monkeypatch):
+    from benchmark import program_record
+    from benchmark.manifest import Manifest
+
+    reader = Manifest().metric_reader("gc_cut_launches")
+    kept = {"spans": [], "counters": {}, "allocs": []}
+    monkeypatch.setattr(program_record, "_KEPT", kept)
+    ctx = types.SimpleNamespace(fenced=3, traced=3)
+    kept["counters"] = {"gc/cut_launches": 6, "gc/levels": 6}
+    assert reader.read(ctx) == 2
+    kept["counters"] = {"gc/levels": 6, "gc/host_reads": 300}  # no kernel
+    assert reader.read(ctx) is None
+    ctx.fenced = 0
+    kept["counters"] = {"gc/cut_launches": 6}
+    assert reader.read(ctx) is None
+    entry, = [m for m in Manifest().data["per_layer"]
+              if m["name"] == "gc_cut_launches"]
+    assert entry["layer"] == "seams"
+    assert entry["workloads"] == ["pano-gc.rot6-12mp"]
 
 
 def test_traced_dp_stitch_records_no_cut():

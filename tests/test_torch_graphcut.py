@@ -172,3 +172,32 @@ def test_pair_caps_equal_jax(use_grad):
                            (img_i, img_j, both, only_i, only_j)), use_grad)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("h,w,cluster", [(16, 16, 1), (64, 64, 1),
+                                         (80, 96, 1), (91, 91, 2),
+                                         (128, 128, 2), (160, 200, 4),
+                                         (256, 256, 8), (1024, 512, 8)])
+def test_cut_kernel_cluster_follows_the_pixels(h, w, cluster):
+    """The card's cut takes one CTA a pair for a coarse 64 x 64 level and
+    up to eight, the portable limit, from 256 x 256 on."""
+    from stitching_tpu_torch.ops.kernels.push_relabel import cluster_size
+
+    assert cluster_size(h, w) == cluster
+
+
+def test_cut_kernel_refuses_what_it_does_not_take():
+    """The kernel's wrapper takes contiguous float32 grids on the card;
+    the plain loop is `grid_min_cut`'s for the CPU."""
+    from stitching_tpu_torch.ops.kernels.push_relabel import push_relabel
+
+    grid = [torch.tensor(np.stack([a])) for a in _oracle_grid(0)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        push_relabel(*grid, 100, 16)
+    with pytest.raises(ValueError, match="float32"):
+        push_relabel(grid[0].double(), *grid[1:], 100, 16)
+    with pytest.raises(ValueError, match=r"\(P, 4, H, W\)"):
+        push_relabel(grid[0][:, :3], *grid[1:], 100, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        push_relabel(grid[0], grid[1].transpose(1, 2).contiguous()
+                     .transpose(1, 2), grid[2], 100, 16)
