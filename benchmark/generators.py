@@ -93,18 +93,49 @@ def _sphere_coords(rays, f, sw, sh):
     return sw / 2 + f * lon, sh / 2 + f * lat
 
 
+def grid_order(rows, cols):
+    """(row, column) of each view of a capture of `rows` x `cols` in the
+    order it is shot: serpentine, row 0 left to right, row 1 right to
+    left, and so on, as a pan-tilt head or a hand sweeps row after row."""
+    return [(r, c if r % 2 == 0 else cols - 1 - c)
+            for r in range(rows) for c in range(cols)]
+
+
+def grid_pairs(rows, cols):
+    """Every pair of grid neighbours (the same row and adjacent columns,
+    or the same column and adjacent rows) as view indices (i, j), i < j,
+    in `grid_order`."""
+    at = {rc: i for i, rc in enumerate(grid_order(rows, cols))}
+    pairs = [(at[r, c], at[r, c + 1]) for r in range(rows)
+             for c in range(cols - 1)]
+    pairs += [(at[r, c], at[r + 1, c]) for r in range(rows - 1)
+              for c in range(cols)]
+    return sorted(tuple(sorted(p)) for p in pairs)
+
+
 def rotation(p, seed, device, shrink=1.0):
-    """`views` views from a purely rotating camera, yaw evenly over
-    +-`max_angle` rad, of a textured scene on a sphere around it, as far
-    away in every direction (as a panorama's scene is, seen from where the
-    camera turns): each pixel's ray R K^-1 p looks the texture up at its
-    longitude and latitude, `focal` texture pixels to the radian
-    (bilinear), so the texture is as sharp at the views' edges as at
-    their centres. Any two views are related by the homography
-    K R_j^T R_i K^-1 of a pure rotation. The scene has to hold every view
-    whole, so that no view has a black band: a traffic whose scene is too
-    small raises ValueError. Truth: K (full resolution) and each camera's
-    rotation, camera to world."""
+    """`views` views from a purely rotating camera of a textured scene on
+    a sphere around it, as far away in every direction (as a panorama's
+    scene is, seen from where the camera turns): each pixel's ray R K^-1 p
+    looks the texture up at its longitude and latitude, `focal` texture
+    pixels to the radian (bilinear), so the texture is as sharp at the
+    views' edges as at their centres. Any two views are related by the
+    homography K R_j^T R_i K^-1 of a pure rotation.
+
+    The views lie on a grid of `rows` (default 1) rows of `views / rows`
+    columns, in `grid_order`: yaw evenly over +-`max_angle` rad in each
+    row, pitch evenly over +-`max_pitch` rad (default 0) across the rows,
+    camera to world R = R_yaw R_pitch. One row is a sweep in yaw alone.
+
+    The scene, drawn before any view, has to hold every view whole, so
+    that no view has a black band: a traffic whose scene is too small
+    raises ValueError. Truth: K (full resolution), each camera's rotation,
+    camera to world, and for more than one row `pairs`, every pair of
+    grid neighbours (`grid_pairs`)."""
+    rows = p.get("rows", 1)
+    if p["views"] % rows:
+        raise ValueError(f"{p['views']} views do not make {rows} rows")
+    cols = p["views"] // rows
     gen = torch.Generator(device=device).manual_seed(seed)
     w = int(round(p["width"] * shrink))
     h = int(round(p["height"] * shrink))
@@ -116,17 +147,23 @@ def rotation(p, seed, device, shrink=1.0):
         torch.arange(h, dtype=torch.float64, device=device),
         torch.arange(w, dtype=torch.float64, device=device), indexing="ij")
     pix = torch.stack([xx, yy, torch.ones_like(xx)], -1)
+    yaws = np.linspace(-p["max_angle"], p["max_angle"], cols)
+    pitches = np.linspace(-p.get("max_pitch", 0.0), p.get("max_pitch", 0.0),
+                          rows)
     views, Rs = [], []
-    for ang in np.linspace(-p["max_angle"], p["max_angle"], p["views"]):
-        c, s = math.cos(ang), math.sin(ang)
-        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    for r, c in grid_order(rows, cols):
+        c_y, s_y = math.cos(yaws[c]), math.sin(yaws[c])
+        c_p, s_p = math.cos(pitches[r]), math.sin(pitches[r])
+        R = (np.array([[c_y, 0, s_y], [0, 1, 0], [-s_y, 0, c_y]])
+             @ np.array([[1, 0, 0], [0, c_p, -s_p], [0, s_p, c_p]]))
         rays = pix @ torch.as_tensor((R @ np.linalg.inv(K)).T,
                                      device=device)
         sx, sy = _sphere_coords(rays, f, sw, sh)
         if (float(sx.min()) < 0 or float(sx.max()) > sw - 1
                 or float(sy.min()) < 0 or float(sy.max()) > sh - 1):
             raise ValueError(f"the scene of {sw}x{sh} does not hold the "
-                             f"view at yaw {ang:.3f}")
+                             f"view at yaw {yaws[c]:.3f}, pitch "
+                             f"{pitches[r]:.3f}")
         grid = torch.stack([2 * sx / (sw - 1) - 1, 2 * sy / (sh - 1) - 1],
                            -1).to(torch.float32)[None]
         out = F.grid_sample(scene[None], grid, mode="bilinear",
@@ -134,7 +171,10 @@ def rotation(p, seed, device, shrink=1.0):
         views.append(_to_host(out.round().clamp(0, 255)))
         Rs.append(R)
         del rays, sx, sy, grid, out
-    return views, dict(kind="rotation", K=K, Rs=Rs)
+    truth = dict(kind="rotation", K=K, Rs=Rs)
+    if rows > 1:
+        truth["pairs"] = grid_pairs(rows, cols)
+    return views, truth
 
 
 def scan(p, seed, device, shrink=1.0):

@@ -1,6 +1,6 @@
 """`device_downscales`: the program's `registration/device_downscales`
 counter, the views whose MEDIUM and LOW registration inputs were made on
-the card (`engine._card_downscale`, one kernel launch a view) rather
+the card (`engine._downscale_landed`, one kernel launch a view) rather
 than resized on the host.
 
 Read from the counters the program keeps in the fenced part of a traced

@@ -4,9 +4,10 @@ Plain NumPy and PyTorch; it imports nothing of the program. It judges
 what a timed stitch produced, in three stages:
 
 - Registration, against the truth the generator rendered the views from:
-  `registration_error_px` maps a grid of points of every view into its
-  neighbour through the program's cameras and through the true geometry,
-  and gives the widest distance, in full-resolution pixels.
+  `registration_error_px` maps a grid of points of every view into each
+  of its neighbours (the truth's grid neighbours, else the next view)
+  through the program's cameras and through the true geometry, and gives
+  the widest distance, in full-resolution pixels.
 - The crop, against a crop planned here: `low_mask` warps every view's
   mask at LOW resolution from the program's cameras (nearest, in bounds,
   pasted at its ROI, as OpenStitching's cropper composes it), and
@@ -439,13 +440,20 @@ def control_panorama(views, lay, device, block=256):
 # Registration against the truth
 # ---------------------------------------------------------------------------
 
+def neighbour_pairs(truth, n):
+    """The pairs of views (i, j) that registration is judged on: the
+    truth's `pairs` where it has them (a grid's neighbours), else each
+    view and the next (a single row or a scan)."""
+    if "pairs" in truth:
+        return [tuple(p) for p in truth["pairs"]]
+    return [(i, i + 1) for i in range(n - 1)]
+
+
 def _true_maps(truth, sizes):
     """The true map of view i's full-resolution pixels into view j's, per
-    neighbour pair (i, i + 1), as 3x3 matrices."""
-    n = len(sizes)
+    neighbour pair (i, j), as 3x3 matrices."""
     out = {}
-    for i in range(n - 1):
-        j = i + 1
+    for i, j in neighbour_pairs(truth, len(sizes)):
         if truth["kind"] == "rotation":
             K = truth["K"]
             Rs = truth["Rs"]
@@ -468,18 +476,17 @@ def _apply(H, pts):
     return q[:, :2] / q[:, 2:3]
 
 
-def _program_maps(cameras, sizes, settings):
-    """The map of view i into view j that the program's cameras make, at
-    full resolution: K_j R_j^-1 R_i K_i^-1 for rotations, K_j A_j (K_i
-    A_i)^-1 for the affine cameras."""
+def _program_maps(cameras, sizes, settings, pairs):
+    """The map of view i into view j, per pair (i, j), that the program's
+    cameras make, at full resolution: K_j R_j^-1 R_i K_i^-1 for
+    rotations, K_j A_j (K_i A_i)^-1 for the affine cameras."""
     first = sizes[0]
     a = (megapix_scale(settings["final_megapix"], first)
          / megapix_scale(settings["medium_megapix"], first))
     Ks = [camera_K(c, a).astype(np.float64) for c in cameras]
     Rs = [np.asarray(c["R"], np.float64) for c in cameras]
     out = {}
-    for i in range(len(cameras) - 1):
-        j = i + 1
+    for i, j in pairs:
         if settings["warper"] == "affine":
             out[i, j] = (Ks[j] @ Rs[j]) @ np.linalg.inv(Ks[i] @ Rs[i])
         else:
@@ -507,11 +514,14 @@ def _map_error(maps, truth, sizes, quantize=None):
 def registration_error_px(cameras, truth, sizes, settings):
     """The widest distance, full-resolution pixels, between where the
     program's cameras and the truth map a grid of points of every view
-    into its neighbour. A view left out reads `LEFT_OUT` (a finite
-    number, so that the result line stays JSON)."""
+    into each of its neighbours (`neighbour_pairs`). A view left out
+    reads `LEFT_OUT` (a finite number, so that the result line stays
+    JSON)."""
     if len(cameras) != len(sizes):
         return LEFT_OUT
-    return _map_error(_program_maps(cameras, sizes, settings), truth, sizes)
+    pairs = neighbour_pairs(truth, len(sizes))
+    return _map_error(_program_maps(cameras, sizes, settings, pairs), truth,
+                      sizes)
 
 
 def control_registration_error_px(truth, sizes):

@@ -8,13 +8,14 @@ import types
 
 from benchmark.manifest import HERE, ROOT, Manifest
 
-CELLS = ("scan-sift.row8-2mp", "pano-default.rot6-12mp")
-
 
 def test_every_cell_finds_its_files():
     man = Manifest()
     names = [w["name"] for w in man.data["workloads"]]
-    assert sorted(names) == sorted(CELLS)
+    assert names and len(set(names)) == len(names)
+    # a metric that lists its cells names cells of the manifest
+    for m in man.data["end_to_end"] + man.data["per_layer"]:
+        assert set(m.get("workloads", names)) <= set(names), m["name"]
     for name in names:
         cell = man.workload(name)
         cfg = man.config(cell["config"])
@@ -25,8 +26,6 @@ def test_every_cell_finds_its_files():
             "uncovered_share", "crop_outside_share", "crop_area_short"}
         e2e = {m["name"] for m in man.end_to_end(name)}
         assert {"panorama_mp_per_s", "setup_s"} <= e2e
-        # the 12 MP cell's p90 spreads too widely for a bound (PERF.md)
-        assert ("stitch_s_p90" in e2e) == (name == "scan-sift.row8-2mp")
         for m in man.per_layer(name):
             assert hasattr(man.metric_reader(m["name"]), "read")
 

@@ -12,7 +12,7 @@ from benchmark import program_record, run
 from benchmark.manifest import Manifest
 
 SPANS = ("crop_flood_fill_s", "stream_warp_s")
-COUNTERS = {"flood_fill_rounds": "crop/flood_rounds",
+COUNTERS = {"crop_label_launches": "crop/label_launches",
             "bundle_iterations": "bundle/iterations"}
 NEW = (*SPANS, *COUNTERS, "cuda_mallocs_per_stitch")
 
@@ -52,11 +52,12 @@ def test_span_readers_per_fenced_stitch(readers):
 def test_counter_readers_per_fenced_stitch(readers):
     got, kept = readers
     ctx = types.SimpleNamespace(fenced=4, traced=3)
-    kept["counters"] = {"crop/flood_rounds": 8000, "bundle/iterations": 60}
-    assert got["flood_fill_rounds"].read(ctx) == 2000
+    kept["counters"] = {"crop/label_launches": 12, "bundle/iterations": 60}
+    assert got["crop_label_launches"].read(ctx) == 3
     assert got["bundle_iterations"].read(ctx) == 15
-    kept["counters"] = {"bundle/iterations": 60}
-    assert got["flood_fill_rounds"].read(ctx) is None
+    # a mask flood filled on the host counts rounds, not launches
+    kept["counters"] = {"crop/flood_rounds": 8000, "bundle/iterations": 60}
+    assert got["crop_label_launches"].read(ctx) is None
     kept["counters"] = {}
     assert got["bundle_iterations"].read(ctx) is None
 
@@ -125,10 +126,12 @@ def test_traced_dry_run_reads_the_program_record(cell, capsys):
     assert rc == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     metrics = line["metrics"]
-    for name in (*SPANS, *COUNTERS):
+    for name in (*SPANS, "bundle_iterations"):
         assert metrics[name]["value"] > 0, name
-    assert metrics["flood_fill_rounds"]["value"] == int(
-        metrics["flood_fill_rounds"]["value"])
+    assert metrics["bundle_iterations"]["value"] == int(
+        metrics["bundle_iterations"]["value"])
+    # the CPU floods the crop's mask on the host: no launch to count
+    assert "crop_label_launches" not in metrics
     # the flood fill is a part of the crop stage, the warps of FINAL
     assert metrics["crop_flood_fill_s"]["value"] < metrics["crop_s"]["value"]
     assert metrics["stream_warp_s"]["value"] < metrics["final_s"]["value"]
