@@ -8,12 +8,14 @@ machinery is `ops/bundle.py` (torch residuals + `torch.func.jacfwd`) and
 runs on the stitcher's device; this component packs the fixed-capacity
 (edge, match) problem tensors from the inlier matches on the host. The
 affine adjuster refines the 4-DoF similarity cameras (a, b, tx, ty).
+The profiler's counter `bundle/edges` takes the edges each packing keeps.
 """
 
 from collections import OrderedDict
 
 import numpy as np
 
+from . import profiling as prof
 from .errors import StitchingError
 from .feature_matcher import FeatureMatcher
 from .ops.bundle import solve_bundle
@@ -76,6 +78,7 @@ class CameraAdjuster:
             for j in range(i + 1, n):
                 if matrix[i][j].confidence > self.confidence_threshold:
                     edges.append((i, j))
+        prof.count("bundle/edges", len(edges))
         if not edges:
             return None
 

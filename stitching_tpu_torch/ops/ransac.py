@@ -14,7 +14,9 @@ The minimal samples are the top-4 (homography) or top-2 (similarity) of
 `jax.random.uniform(PRNGKey(seed), (K, M))`; `threefry_uniform`
 reproduces that draw bit for bit (threefry 2x32 over a partitionable 64-bit
 iota, as JAX draws it), so the port picks the same hypotheses as the
-reference.
+reference. Of those, the homography drops the samples that fold
+(`_orientation_kept`), as `cv::findHomography` does and the JAX package
+does not.
 """
 
 import math
@@ -25,6 +27,7 @@ RANSAC_THRESH = 3.0       # px, cv.findHomography's default in cv.detail
 N_HYPOTHESES = 512
 
 _MASK32 = 0xFFFFFFFF
+_CPU_CHUNK = 1 << 17      # draws a slice on the host (`threefry_uniform`)
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -56,13 +59,26 @@ def threefry_uniform(seeds, shape, device=None):
     """
     seeds = torch.as_tensor(seeds, device=device).to(torch.int64) & _MASK32
     n = math.prod(shape)
-    count = torch.arange(n, dtype=torch.int64, device=seeds.device)
-    k2 = seeds[:, None]
-    x0, x1 = threefry2x32(torch.zeros_like(k2), k2,
-                          (count >> 32)[None, :], (count & _MASK32)[None, :])
-    bits = x0 ^ x1
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if seeds.device.type == "cpu":
+        # on the host the 20 rounds go through memory once each; a
+        # cache-sized slice at a time takes a sixth of the time (153 pairs
+        # of 512 x 1000 draws: 51 s -> 8 s on two threads)
+        f = torch.empty(seeds.shape[0] * n, dtype=torch.float32)
+        for lo in range(0, len(f), _CPU_CHUNK):
+            at = torch.arange(lo, min(lo + _CPU_CHUNK, len(f)))
+            f[lo:lo + len(at)] = _uniform(seeds[at // n], at % n)
+    else:
+        f = _uniform(seeds[:, None], torch.arange(n, device=seeds.device))
     return f.reshape((seeds.shape[0],) + tuple(shape))
+
+
+def _uniform(k2, count):
+    """The float in [0, 1) of key (0, k2) at counter `count` (broadcast)."""
+    x0, x1 = threefry2x32(torch.zeros_like(k2), k2, count >> 32,
+                          count & _MASK32)
+    bits = x0 ^ x1
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
 
 
 def _normalize_points(pts, valid):
@@ -140,6 +156,24 @@ def _spread(pts, min_d):
     return far.all(dim=-1).all(dim=-1)
 
 
+def _orientation_kept(src4, dst4):
+    """(P, K, 4, 2) x 2 -> (P, K): the sample keeps its orientation, as
+    `cv::findHomography`'s check of a minimal sample takes it (Marquez-Neila
+    et al. 2013): each of the four triangles of the four points turns the
+    same way in both views, or each the other way. A sample that folds
+    gives a homography that no turn of a camera gives to points both views
+    see; on an overlap that is a thin strip such a hypothesis can take in
+    matches far off the strip and win the vote with them."""
+    def turns(p, a, b, c):
+        u = p[..., b, :] - p[..., a, :]
+        v = p[..., c, :] - p[..., a, :]
+        return u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]
+
+    flips = sum(((turns(src4, *t) * turns(dst4, *t)) < 0).to(torch.int32)
+                for t in ((0, 1, 2), (1, 2, 3), (0, 2, 3), (1, 0, 3)))
+    return (flips == 0) | (flips == 4)
+
+
 def _compact(src, dst, valid):
     """Valid points first, in order (a stable sort), so that the samples
     hit them. Returns (order, src_c, dst_c, valid_c)."""
@@ -188,7 +222,8 @@ def ransac_homography(src, dst, valid, seeds, *, n_iters=N_HYPOTHESES):
     s4, d4 = _take(src_n, idx), _take(dst_n, idx)
     scale_s = Ts[:, 0, 0]
     scale_d = Td[:, 0, 0]
-    hyp_ok = _spread(s4, scale_s) & _spread(d4, scale_d)       # (P, K)
+    hyp_ok = (_spread(s4, scale_s) & _spread(d4, scale_d)
+              & _orientation_kept(s4, d4))                      # (P, K)
 
     H_n = _h_from_4pts(s4, d4)                                  # (P,K,3,3)
     proj = _apply_h(H_n, src_n)                                 # (P,K,M,2)

@@ -11,7 +11,8 @@ living in device memory:
 - matching + RANSAC runs the whole C(B,2) pair axis at once: the 2-NN is
   the CUDA kernel `ops/kernels/two_nn.two_nn_pairs`, ratio/union and
   RANSAC (homography, or the similarity for the affine matcher) are
-  batched over pairs;
+  batched over pairs; the profiler's counter `match/pairs` takes the
+  candidate pairs of each call;
 - `register_pair` registers ONE pair of frames (detect, `match_pair`,
   RANSAC): the per-pair unit the match graph is built from.
 
@@ -29,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import profiling as prof
 from .ops.color import bgr_to_gray
 from .ops.fma import fma
 from .ops.kernels.two_nn import two_nn_pairs
@@ -332,6 +334,7 @@ def match_stack_dispatch(feats, img_sizes, *, matcher_type="homography",
     dev = desc.device
     n = n_images if n_images is not None else desc.shape[0]
     pair_ij = make_pairs(n, range_width)
+    prof.count("match/pairs", len(pair_ij))
     if len(pair_ij) == 0:
         return pair_ij, None
     seeds = (pair_ij[:, 0].astype(np.uint32) * np.uint32(n)

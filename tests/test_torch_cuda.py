@@ -1402,3 +1402,81 @@ def test_match_stack_dispatch_mesh_cuda(nccl_mesh):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# A multi-row capture: `Stitcher()` on the grid cell's 12 MP sets
+# ---------------------------------------------------------------------------
+
+# seed:set of `benchmark/traffic/grid18-12mp.json` that the card bent
+# (51-93 px) before minimal samples that fold were dropped
+# (`ops/ransac._orientation_kept`); the first bent on the card alone
+GRID_BENT = [(2200002006, 0), (2200002002, 1), (2200002004, 2),
+             (2200003004, 1)]
+
+
+def _grid(seed, k, device):
+    """The grid cell's set: (views on the host, truth, sizes, the cell's
+    settings and limits)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import generators
+    from benchmark.manifest import Manifest
+
+    man = Manifest()
+    cell = man.workload("pano-default.grid18-12mp")
+    views, truth = generators.make(man.traffic(cell["traffic"]),
+                                   generators.set_seed(seed, k), device)
+    return (views, truth, [(v.shape[1], v.shape[0]) for v in views],
+            man.config(cell["config"])["reference"], man.limits(cell["name"]))
+
+
+def _registered(views, device):
+    """`Stitcher()`'s registration of the views: cameras as dicts."""
+    from stitching_tpu_torch import Stitcher, engine
+
+    reg = engine.register(Stitcher(device=device), views)
+    return [dict(focal=float(c.focal), aspect=float(c.aspect),
+                 ppx=float(c.ppx), ppy=float(c.ppy),
+                 R=np.asarray(c.R, np.float64)) for c in reg.cameras]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k", GRID_BENT)
+def test_grid_set_registers_on_the_card(cuda_device, seed, k):
+    from benchmark import reference
+
+    views, truth, sizes, settings, limits = _grid(seed, k, cuda_device)
+    cams = _registered(views, cuda_device)
+    assert len(cams) == 18
+    err = reference.registration_error_px(cams, truth, sizes, settings)
+    assert err < limits["reg_err_px"], err
+
+
+@pytest.mark.cuda
+def test_grid_card_cameras_agree_with_the_cpu_run(cuda_device):
+    """The set that bent on the card alone (74.85 px there, 4.03 on the
+    CPU): the card's cameras and the CPU run's, on the same host views,
+    map every view into each grid neighbour within half the cell's limit
+    of each other, and each within the limit of the truth."""
+    from benchmark import reference
+
+    views, truth, sizes, settings, limits = _grid(*GRID_BENT[0], cuda_device)
+    card = _registered(views, cuda_device)
+    cpu = _registered(views, torch.device("cpu"))
+    for cams in (card, cpu):
+        assert len(cams) == 18
+        assert reference.registration_error_px(
+            cams, truth, sizes, settings) < limits["reg_err_px"]
+    pairs = reference.neighbour_pairs(truth, 18)
+    a = reference._program_maps(card, sizes, settings, pairs)
+    b = reference._program_maps(cpu, sizes, settings, pairs)
+    far = max(np.linalg.norm(
+        reference._apply(a[p], reference._grid(sizes[p[0]]))
+        - reference._apply(b[p], reference._grid(sizes[p[0]])), axis=1).max()
+        for p in a)
+    assert far < limits["reg_err_px"] / 2, far

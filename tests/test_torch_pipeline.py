@@ -19,6 +19,7 @@ from stitching_tpu_torch import convert
 from stitching_tpu_torch import pipeline as tp
 from stitching_tpu_torch.camera_estimator import CameraEstimator
 from stitching_tpu_torch.feature_matcher import FeatureMatcher
+from stitching_tpu_torch.ops import ransac
 
 # The suite's workers run side by side on a few cores: keep each one's
 # intra-op pool small, or the pools spin against each other.
@@ -98,7 +99,13 @@ def _jax_features(imgs, feats):
 
 
 @pytest.mark.parametrize("branch", ["color", "gray"])
-def test_match_features_on_jax_features_matches_jax(jax_detection, branch):
+def test_match_features_on_jax_features_matches_jax(jax_detection, branch,
+                                                     monkeypatch):
+    # with the JAX package's sample test: the port's RANSAC also drops
+    # minimal samples that fold (a departure, `test_torch_parity.BEHAVIOUR`,
+    # held in `test_torch_ransac.py`), which moves a weak pair here
+    monkeypatch.setattr(ransac, "_orientation_kept",
+                        lambda s4, d4: torch.ones(s4.shape[:2], dtype=bool))
     imgs, feats = jax_detection[branch]
     sizes, features = _jax_features(imgs, feats)
     pairs, ref = jp.match_stack(

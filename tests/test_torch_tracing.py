@@ -97,8 +97,11 @@ def test_new_spans_nest_in_their_stages(traced):
 
 def test_counters_of_the_stitch(traced):
     _, counters, _ = traced
-    assert set(counters) == {"bundle/iterations", "crop/flood_rounds"}
+    assert set(counters) == {"bundle/iterations", "crop/flood_rounds",
+                             "match/pairs", "bundle/edges"}
     assert counters["bundle/iterations"] >= 1
+    assert counters["match/pairs"] == N_VIEWS * (N_VIEWS - 1) // 2
+    assert 1 <= counters["bundle/edges"] <= counters["match/pairs"]
     assert counters["crop/flood_rounds"] >= 1
 
 
