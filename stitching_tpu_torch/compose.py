@@ -51,8 +51,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import profiling as prof
 from .ops.blend import _to_u8, distance_transform_l1
 from .ops.fma import fma
+from .ops.kernels.band_copy import copy_band
 from .ops.kernels.bilinear_sample import bilinear_sample
 from .ops.pyramid import build_gaussian, build_laplacian, collapse_laplacian
 from .ops.warp import PROJECTORS, warp_roi
@@ -725,6 +727,11 @@ def _wmap_to_u8(wmap):
     return (wmap > _EPS).to(torch.uint8) * 255
 
 
+def _state_wmap(state, kind):
+    """The level-0 weight map (ph, pw) of accumulators `state`."""
+    return state[1][0][..., 0] if kind == "multiband" else state[1]
+
+
 def _merge_state(state, kind, mesh):
     """Every rank's accumulators merged, in place: summed for multiband
     and feather (both are sums of per-tile terms), the maximum for the
@@ -767,61 +774,85 @@ def _blend_canvas(p, tiles, seams, offs, idx, ph, pw, rows=None,
 class _HostFetch:
     """Copies finished panorama bands to host memory while later work runs.
 
-    On the card each band's copy waits on an event recorded on the caller's
-    (compute) stream and runs on a side stream into pinned host memory;
-    the band tensors are marked as used on that stream, so the caching
-    allocator keeps them until their copy is done. On the CPU a band is
-    copied at once. `assemble` waits for every copy and writes the bands
-    into host (pano, mask) arrays."""
+    Each band has a panorama part and, where the caller keeps the weight
+    mask, a mask part. The bands land in place: the first panorama part
+    takes one host panorama (dh, dw, C) (the first mask part a (dh, dw)
+    mask), zeroed nowhere, because the bands cover it, and each part is
+    written into its place by `ops/kernels/band_copy.copy_band`.
 
-    def __init__(self, device):
+    On the CPU a band is written at once. On the card the host panorama
+    is pinned, and each band's copy waits on an event recorded on the
+    caller's (compute) stream and runs on a side stream as one strided
+    copy; the band tensors are marked as used on that stream, so the
+    caching allocator keeps them until their copy is done. `assemble`
+    waits on the last copy and returns views of the host arrays: pinned
+    on the card, their blocks stay with the caller, and the caching host
+    allocator hands them out again once the caller lets them go."""
+
+    def __init__(self, device, dh, dw, C):
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
-        self.bands = []     # (axis, lo, hi, pano part, mask part, done)
+        self.shapes = ((dh, dw, C), (dh, dw))
+        self.host = [None, None]    # the host pano and mask
+        self.done = None            # card: the last copy's event
+        self.landed = 0             # card: bands landed
 
-    def submit(self, axis, lo, hi, seg, wseg):
+    def __del__(self):
+        # dropped between submit and assemble (a stitch that failed): its
+        # copies must end before the pinned blocks go back to the cache
+        if self.done is not None:
+            self.done.synchronize()
+
+    def _land(self, axis, lo, parts):
+        for k, t in enumerate(parts):
+            if t is None:
+                continue
+            if self.host[k] is None:
+                self.host[k] = torch.empty(
+                    self.shapes[k], dtype=torch.uint8,
+                    pin_memory=self.stream is not None)
+            copy_band(self.host[k], axis, lo, t)
+
+    def submit(self, axis, lo, seg, wseg=None):
+        """Land the panorama part `seg` and the mask part `wseg` (None
+        where the caller keeps no mask) of the band at [lo, lo + extent)
+        along `axis`; on the card, start their copy."""
+        parts = (seg, wseg)
         if self.stream is None:
-            self.bands.append((axis, lo, hi, seg.numpy(), wseg.numpy(),
-                               None))
+            self._land(axis, lo, parts)
             return
         ready = torch.cuda.Event()
         ready.record()
-        parts = []
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(ready)
-            for t in (seg, wseg):
-                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                host.copy_(t, non_blocking=True)
-                t.record_stream(self.stream)
-                parts.append(host)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        self.bands.append((axis, lo, hi, *parts, done))
+            self._land(axis, lo, parts)
+            for t in parts:
+                if t is not None:
+                    t.record_stream(self.stream)
+            self.done = torch.cuda.Event()
+            self.done.record(self.stream)
+        self.landed += 1
 
-    def assemble(self, dh, dw, C):
-        pano = np.zeros((dh, dw, C), np.uint8)
-        wmask = np.zeros((dh, dw), np.uint8)
-        for axis, lo, hi, seg, wseg, done in self.bands:
-            if done is not None:
-                done.synchronize()
-                seg, wseg = seg.numpy(), wseg.numpy()
-            if axis == 0:
-                pano[lo:hi] = seg
-                wmask[lo:hi] = wseg
-            else:
-                pano[:, lo:hi] = seg
-                wmask[:, lo:hi] = wseg
-        self.bands = []
-        return pano, wmask
+    def assemble(self):
+        """The host (pano, mask) once every band has landed; mask None
+        where no band had a mask part."""
+        if self.done is not None:
+            with prof.stage_timer("final/blend/wait"):
+                self.done.synchronize()
+            prof.count("fetch/bands_in_place", self.landed)
+        host = self.host
+        self.host, self.done, self.landed = [None, None], None, 0
+        return tuple(None if t is None else t.numpy() for t in host)
 
 
-def _collapse_band(state, kind, nb, m, halo, pa, d_other, r0, r1, axis=0):
+def _collapse_band(state, kind, nb, m, halo, pa, d_other, r0, r1, axis=0,
+                   mask=True):
     """Span [r0, r1) of the final panorama along `axis` (0 = rows,
     1 = columns) as (seg_u8, wseg_u8), collapsed from accumulator `state`
     over the span widened by `halo` (the pyr_up chain's support) and
     aligned to the coarsest level, so it equals the full collapse there.
     `pa` is the accumulator extent along the axis; `d_other` the
-    panorama extent across it."""
+    panorama extent across it. mask=False: wseg_u8 is None."""
     a0 = max(r0 - halo, 0)
     a1 = min(-(-(r1 + halo) // m) * m, pa)
     a0 = (a0 // m) * m
@@ -836,18 +867,16 @@ def _collapse_band(state, kind, nb, m, halo, pa, d_other, r0, r1, axis=0):
         laps = [span(acc[lv], lv) / (span(wacc[lv], lv) + _EPS)
                 for lv in range(nb + 1)]
         band = collapse_laplacian(laps)
-        wmap = span(wacc[0])[..., 0]
     elif kind == "feather":
         acc, wsum = state
         band = span(acc) / span(wsum)[..., None].clamp_min(_EPS)
-        wmap = span(wsum)
     else:
-        band, wmap = span(state[0]), span(state[1])
-    if axis == 0:
-        return (_to_u8(band[r0 - a0:r1 - a0, :d_other]),
-                _wmap_to_u8(wmap[r0 - a0:r1 - a0, :d_other]))
-    return (_to_u8(band[:d_other, r0 - a0:r1 - a0]),
-            _wmap_to_u8(wmap[:d_other, r0 - a0:r1 - a0]))
+        band = span(state[0])
+    cut = ((slice(r0 - a0, r1 - a0), slice(0, d_other)) if axis == 0
+           else (slice(0, d_other), slice(r0 - a0, r1 - a0)))
+    wseg = (_wmap_to_u8(span(_state_wmap(state, kind))[cut]) if mask
+            else None)
+    return _to_u8(band[cut]), wseg
 
 
 def _halo(p):
@@ -920,12 +949,19 @@ def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch,
     if mesh is not None:
         return _blend_strips_mesh(stack, seam_masks, p, members, lph, lpw,
                                   strip_w, a, mesh)
-    fetch = _HostFetch(dev) if stream_fetch else None
+    fetch = _HostFetch(dev, dh, dw, C) if stream_fetch else None
     if not stream_fetch:
         pano = torch.zeros((dh, dw, C), dtype=torch.uint8, device=dev)
         wmask = torch.zeros((dh, dw), dtype=torch.uint8, device=dev)
     for cs, ce, ls, _, keep in members:
         if not keep:
+            if stream_fetch:
+                # the host panorama is not zeroed: a strip that no tile
+                # reaches lands as zeros
+                shape = (dh, ce - cs) if a == 0 else (ce - cs, dw)
+                fetch.submit(1 - a, cs, torch.zeros(
+                    (*shape, C), dtype=torch.uint8, device=dev), torch.zeros(
+                    shape, dtype=torch.uint8, device=dev))
             continue
         offs = p["offs"][keep].copy()
         offs[:, a] -= ls
@@ -939,7 +975,7 @@ def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch,
             seg = _to_u8(strip[x0:x0 + ce - cs, :dw])
             wseg = _wmap_to_u8(w0[x0:x0 + ce - cs, :dw])
         if stream_fetch:
-            fetch.submit(1 - a, cs, ce, seg, wseg)
+            fetch.submit(1 - a, cs, seg, wseg)
         elif a == 0:
             pano[:, cs:ce] = seg
             wmask[:, cs:ce] = wseg
@@ -947,7 +983,7 @@ def _blend_strips(stack, seam_masks, p, strip_w, axis, stream_fetch,
             pano[cs:ce] = seg
             wmask[cs:ce] = wseg
     if stream_fetch:
-        return fetch.assemble(dh, dw, C)
+        return fetch.assemble()
     return pano, wmask
 
 
@@ -1088,7 +1124,7 @@ def _blend_monolithic_stream(stack, seam_masks, p):
     halo = _halo(p)
     state = _new_state(kind, nb, ph, pw, stack.data.shape[-1],
                        stack.data.device)
-    fetch = _HostFetch(stack.data.device)
+    fetch = _HostFetch(stack.data.device, dh, dw, stack.data.shape[-1])
     done = 0
 
     # one band per frontier: the collapse halo is paid once a band
@@ -1097,8 +1133,8 @@ def _blend_monolithic_stream(stack, seam_masks, p):
         r0, r1 = done, min(upto, dh)
         if r1 <= r0:
             return
-        fetch.submit(0, r0, r1, *_collapse_band(state, kind, nb, m, halo, ph,
-                                                dw, r0, r1, axis=0))
+        fetch.submit(0, r0, *_collapse_band(state, kind, nb, m, halo, ph, dw,
+                                            r0, r1, axis=0))
         done = r1
 
     for k, i in enumerate(order):
@@ -1110,7 +1146,7 @@ def _blend_monolithic_stream(stack, seam_masks, p):
             if safe - done >= max(1024, 2 * halo):
                 emit(safe)
     emit(dh)
-    return fetch.assemble(dh, dw, stack.data.shape[-1])
+    return fetch.assemble()
 
 
 def blend_stack(stack: TileStack, seam_masks, blender_type, blend_strength,
@@ -1268,7 +1304,7 @@ class StreamComposite:
         self._frontier = bool(frontier_fetch)
         self._unfed = set(range(p["n"]))
         self._emitted = 0
-        self._fetch = _HostFetch(self.device)
+        self._fetch = _HostFetch(self.device, p["dh"], p["dw"], C)
         self._halo = _halo(p)
 
     def _emit_cols(self, upto):
@@ -1277,9 +1313,10 @@ class StreamComposite:
         c0, c1 = self._emitted, min(upto, p["dw"])
         if c1 <= c0:
             return
-        self._fetch.submit(1, c0, c1, *_collapse_band(
-            self.state, p["kind"], p["nb"], p["m"], self._halo, p["pw"],
-            p["dh"], c0, c1, axis=1))
+        seg, _ = _collapse_band(self.state, p["kind"], p["nb"], p["m"],
+                                self._halo, p["pw"], p["dh"], c0, c1, axis=1,
+                                mask=False)
+        self._fetch.submit(1, c0, seg)
         self._emitted = c1
 
     def feed(self, i, tile, seam):
@@ -1299,14 +1336,24 @@ class StreamComposite:
                 if safe - self._emitted >= min_cols:
                     self._emit_cols(safe)
 
-    def finish(self, stream_fetch=False):
+    def finish(self, stream_fetch=False, mask=True):
         """Collapse and crop: (pano_u8, mask_u8).
 
         stream_fetch=True (or frontier_fetch): collapse in bands, each
         copied to the host while the next collapses, and return host
-        arrays; otherwise one collapse returning tensors on the device."""
+        arrays; otherwise one collapse returning tensors on the device.
+        The bands carry the panorama alone. mask=False, the engine's call:
+        (pano_u8, None), and no mask is made. The mask is kept for the
+        callers that hold (pano, mask) against the JAX package's
+        `StreamComposite.finish` (the parity tests); streamed, it is made
+        once at the end, since no band changes it, and fetched in one
+        copy."""
         p = self.p
         dh, dw, m = p["dh"], p["dw"], p["m"]
+        if not (stream_fetch or self._frontier):
+            pano, wmap = _finish_state(self.state, p["kind"], p["nb"])
+            return (_to_u8(pano[:dh, :dw]),
+                    _wmap_to_u8(wmap[:dh, :dw]) if mask else None)
         if self._frontier:
             # the remaining columns in a couple of tail bands, so the last
             # copy overlaps the second-to-last collapse
@@ -1314,17 +1361,19 @@ class StreamComposite:
             band = max(512, -(-(max(rest, 1) // 2) // m) * m)
             while self._emitted < dw:
                 self._emit_cols(self._emitted + band)
-            return self._fetch.assemble(dh, dw, self.C)
-        if not stream_fetch:
-            pano, wmap = _finish_state(self.state, p["kind"], p["nb"])
-            return _to_u8(pano[:dh, :dw]), _wmap_to_u8(wmap[:dh, :dw])
-        band = max(1024, -(-(dh // 4) // m) * m)
-        for r0 in range(0, dh, band):
-            r1 = min(r0 + band, dh)
-            self._fetch.submit(0, r0, r1, *_collapse_band(
-                self.state, p["kind"], p["nb"], m, self._halo, p["ph"], dw,
-                r0, r1, axis=0))
-        return self._fetch.assemble(dh, dw, self.C)
+        else:
+            band = max(1024, -(-(dh // 4) // m) * m)
+            for r0 in range(0, dh, band):
+                seg, _ = _collapse_band(self.state, p["kind"], p["nb"], m,
+                                        self._halo, p["ph"], dw, r0,
+                                        min(r0 + band, dh), axis=0,
+                                        mask=False)
+                self._fetch.submit(0, r0, seg)
+        pano, _ = self._fetch.assemble()
+        if not mask:
+            return pano, None
+        wmap = _state_wmap(self.state, p["kind"])
+        return pano, _wmap_to_u8(wmap[:dh, :dw]).cpu().numpy()
 
 
 def fetch_image(img):

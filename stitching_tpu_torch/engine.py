@@ -503,7 +503,9 @@ def _composite_streamed(reg: Registration, final):
         reg.uploader = None
         reg.low_stack = None
     with prof.stage_timer("final/blend"):
-        pano, _ = stream.finish(stream_fetch=True)
+        # the copy engine lands the bands in one pinned host panorama; the
+        # weight mask is not wanted, so none is made or fetched
+        pano, _ = stream.finish(stream_fetch=True, mask=False)
     return pano
 
 

@@ -50,6 +50,10 @@ ENTRIES = {
     # a graph-cut level: the three grids, scratch, cut and iterations, then
     # pairs, h, w, max_iters, relabel_every and the cluster's CTAs
     "push_relabel": ("push_relabel", [_P] * 6 + [_I] * 6 + [_P]),
+    # a panorama band landed in its place in pinned host memory: the
+    # destination and its pitch, the band and its pitch, the row's bytes
+    # and the rows
+    "copy_band_2d": ("band_copy", [_P, _L, _P, _L, _L, _L, _P]),
     # measurement aids: empty launches, the floor under every kernel's time;
     # and a stream capture that counts what one call launches (`capture_end`
     # returns the count, or minus a cudaError_t)

@@ -140,7 +140,17 @@ class Stitcher:
 
     def stitch(self, images, feature_masks=[]):
         """Stitch the image set into a panorama (uint8 host array), or,
-        with timelapse, write one frame per image and return None."""
+        with timelapse, write one frame per image and return None.
+
+        On the card the streamed FINAL pass lands the panorama's bands in
+        one pinned (page-locked) host block, and the array is a view of
+        it: the block stays page-locked while the caller holds the array.
+        Once it is let go, PyTorch's caching host allocator keeps the
+        block (its size rounded up to a power of two) for the next stitch,
+        for the life of the process, or until
+        `torch.accelerator.empty_host_cache()` where PyTorch has it (2.11
+        has not). A caller that keeps many panoramas can keep
+        `pano.copy()`, in pageable memory, instead."""
         with no_tf32():
             return engine.run(self, images, feature_masks)
 

@@ -1139,6 +1139,9 @@ def _strip_stack(name, device):
     elif name == "y":
         th, tw, corners = 500, 800, [(c * 650, r * 430) for r in range(8)
                                      for c in range(2)]
+    elif name == "gap":     # two pairs far apart: X strips no tile reaches
+        th, tw, corners = 600, 800, [(0, 0), (700, 20), (9000, 10),
+                                     (9700, 0)]
     else:
         th, tw, corners = 900, 700, [(c * 600, r * 800) for r in range(3)
                                      for c in range(2)]
@@ -1201,6 +1204,214 @@ def test_stream_composite_cuda_equals_blend_stack(cuda_device, kind,
     assert isinstance(got, np.ndarray)
     assert np.array_equal(got, pano.cpu().numpy())
     assert np.array_equal(got_mask, mask.cpu().numpy())
+
+
+@pytest.fixture
+def landed_bands(monkeypatch):
+    """Every band `compose._HostFetch` is given, kept on the card as it
+    was submitted: (axis, lo, pano part, mask part)."""
+    from stitching_tpu_torch import compose
+
+    seen = []
+    submit = compose._HostFetch.submit
+
+    def keeping(self, axis, lo, seg, wseg=None):
+        seen.append((axis, lo, *(None if t is None else t.clone()
+                                 for t in (seg, wseg))))
+        submit(self, axis, lo, seg, wseg)
+
+    monkeypatch.setattr(compose._HostFetch, "submit", keeping)
+    return seen
+
+
+def _assembled_on_the_card(bands, pano_shape):
+    """The submitted bands written into zeroed tensors on the card, the
+    host assembly's arithmetic: (pano, mask or None)."""
+    dev = next(t for b in bands for t in b[2:] if t is not None).device
+    out = [torch.zeros(pano_shape, dtype=torch.uint8, device=dev),
+           torch.zeros(pano_shape[:2], dtype=torch.uint8, device=dev)]
+    has_mask = any(w is not None for *_, w in bands)
+    for axis, lo, *parts in bands:
+        for dst, part in zip(out, parts):
+            if part is not None:
+                n = part.shape[axis]
+                (dst[lo:lo + n] if axis == 0 else dst[:, lo:lo + n]).copy_(
+                    part)
+    return out[0].cpu().numpy(), (out[1].cpu().numpy() if has_mask
+                                  else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [True, False])
+@pytest.mark.parametrize("kind", ["multiband", "feather", "no"])
+@pytest.mark.parametrize("frontier", [False, True])
+def test_stream_composite_cuda_lands_bands_in_place(cuda_device, landed_bands,
+                                                    frontier, kind, mask):
+    """Column bands (the frontier) and row bands (`stream_fetch`) land in
+    one pinned host panorama equal to the batched blend value for value,
+    with the mask or without it, and `fetch/bands_in_place` counts each
+    panorama band."""
+    from stitching_tpu_torch import compose, profiling
+
+    stack = _strip_stack("x", cuda_device)
+    pano, wmask = compose.blend_stack(stack, None, kind, 5)
+    th, tw = stack.data.shape[1:3]
+    p = compose._plan_blend(stack.corners, stack.sizes, len(stack.sizes),
+                            kind, 5, th, tw)
+    stream = compose.StreamComposite(p, frontier_fetch=frontier,
+                                     device=cuda_device)
+    for i in range(stack.data.shape[0]):
+        stream.feed(i, stack.data[i], stack.masks[i])
+    profiling.reset()
+    profiling.enable()
+    try:
+        got, got_mask = stream.finish(stream_fetch=True, mask=mask)
+        landed = profiling.get_counters().get("fetch/bands_in_place")
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert isinstance(got, np.ndarray) and got.flags["C_CONTIGUOUS"]
+    assert np.array_equal(got, pano.cpu().numpy())
+    bands = [b for b in landed_bands if b[2] is not None]
+    assert {b[0] for b in bands} == {1 if frontier else 0}
+    # the frontier's columns leave in bands; this canvas is one row band
+    assert landed == len(bands) >= (2 if frontier else 1)
+    if mask:
+        assert np.array_equal(got_mask, wmask.cpu().numpy())
+    else:
+        assert got_mask is None
+        assert all(b[3] is None for b in landed_bands)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind", [
+    ("x", "multiband"), ("x", "feather"), ("y", "multiband"),
+    ("y", "no"), ("mono", "multiband"), ("mono", "feather"),
+    ("gap", "multiband")])
+def test_over_budget_blend_cuda_lands_bands_in_place(cuda_device,
+                                                     landed_bands, name,
+                                                     kind):
+    """X and Y strips and the streamed monolithic blend land their bands
+    in place: the host panorama and mask equal the submitted bands
+    written on the card value for value, and the strips equal their own
+    assembly on the card (`stream_fetch=False`)."""
+    from stitching_tpu_torch import compose
+
+    stack = _strip_stack(name, cuda_device)
+    got, got_mask = compose.blend_stack(stack, None, kind, 5,
+                                        stream_fetch=True, budget=20e6)
+    assert len(landed_bands) >= 2
+    want, want_mask = _assembled_on_the_card(landed_bands, got.shape)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got_mask, want_mask)
+    if name != "mono":
+        dev, dev_mask = compose.blend_stack(stack, None, kind, 5,
+                                            stream_fetch=False, budget=20e6)
+        assert np.array_equal(got, dev.cpu().numpy())
+        assert np.array_equal(got_mask, dev_mask.cpu().numpy())
+
+
+def _rot6(seed, k, device):
+    """A set of the `rot6-12mp` traffic: six 12 MP views on the host."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import generators
+    from benchmark.manifest import Manifest
+
+    views, _ = generators.make(Manifest().traffic("rot6-12mp"),
+                               generators.set_seed(seed, k), device)
+    return views
+
+
+@pytest.mark.cuda
+def test_held_panorama_survives_later_stitches(cuda_device):
+    """`Stitcher.stitch` returns a view of a pinned host panorama whose
+    block the caching host allocator hands out again once it is let go. A
+    panorama the caller holds stays as it was through later stitches, and
+    a stitch that lands in the freed block of another set's panorama (not
+    zeroed) gives the panorama a fresh block gave."""
+    from stitching_tpu_torch import Stitcher
+
+    set_a, set_b = (_rot6(2400000017, k, cuda_device) for k in (0, 1))
+    st = Stitcher(device=cuda_device)
+    pano = st.stitch(set_b)
+    want_b = pano.copy()
+    del pano                          # its block goes back to the cache
+    held = st.stitch(set_a)           # may land in set b's block
+    want_a = held.copy()
+    again = st.stitch(set_b)          # the held block is not handed out
+    assert np.array_equal(held, want_a)
+    _near(again, want_b, 0.999)
+    del held, again
+    stats = getattr(torch.cuda, "host_memory_stats", dict)
+    before = stats()
+    for _ in range(2):                # each lands in a freed block
+        _near(st.stitch(set_b), want_b, 0.999)
+    print("pinned host allocations", before.get("num_host_alloc"), "->",
+          stats().get("num_host_alloc"))
+
+
+def _host_blocks():
+    """(pinned blocks made, their bytes held) of the caching host
+    allocator."""
+    s = torch.cuda.host_memory_stats()
+    return s.get("num_host_alloc", 0), s.get("allocated_bytes.current", 0)
+
+
+@pytest.mark.cuda
+def test_held_panoramas_keep_their_pinned_blocks(cuda_device):
+    """Each panorama the caller holds keeps a pinned host block of at
+    least its bytes. Once they are dropped, the caching host allocator
+    keeps the blocks, and later stitches land in them and page-lock
+    nothing new; `torch.accelerator.empty_host_cache()`, where this
+    PyTorch has it, hands the cached blocks back."""
+    from stitching_tpu_torch import Stitcher
+
+    views = _rot6(2400000021, 0, cuda_device)
+    st = Stitcher(device=cuda_device)
+    st.stitch(views)                      # its block goes back to the cache
+    rows = [("warm", *_host_blocks())]
+    held = []
+    for k in range(1, 5):
+        held.append(st.stitch(views))
+        rows.append((f"held {k}", *_host_blocks()))
+    nbytes = held[0].nbytes
+    assert rows[-1][2] >= 4 * nbytes
+    del held
+    rows.append(("dropped", *_host_blocks()))
+    for _ in range(3):
+        st.stitch(views)
+    rows.append(("3 more, not held", *_host_blocks()))
+    empty = getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                    None)
+    if empty is not None:
+        empty()
+        rows.append(("emptied", *_host_blocks()))
+    print("held panoramas of", nbytes, "bytes: (step, blocks made, bytes "
+          "held)", rows)
+    assert rows[5][1:] == rows[6][1:] == rows[4][1:]
+    if empty is not None:
+        assert rows[7][2] <= rows[6][2] - 4 * nbytes
+
+
+@pytest.mark.cuda
+def test_dropped_fetch_waits_on_its_copies(cuda_device):
+    """A fetch dropped between `submit` and `assemble` (a stitch that
+    failed) ends its copies before its pinned block can be handed out
+    again."""
+    from stitching_tpu_torch import compose
+
+    band = torch.full((4096, 4096, 3), 9, dtype=torch.uint8,
+                      device=cuda_device)
+    fetch = compose._HostFetch(cuda_device, 4096, 4096, 3)
+    fetch.submit(0, 0, band)
+    done = fetch.done
+    del fetch
+    assert done.query()
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ the row-ordered monolithic stream against the port's own monolithic
 blend, panoramas are held within 1 LSB.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +52,13 @@ def _geometry(name):
                          for _ in range(6)])
         corners = [(c * 160, r * 220) for r in range(3) for c in range(2)]
         sizes = [(tw, th)] * 6
+    elif name == "gap":     # two pairs far apart: X strips no tile reaches
+        rng = np.random.RandomState(9)
+        th, tw = 192, 256
+        data = np.stack([rng.randint(0, 255, (th, tw, 3)).astype(np.float32)
+                         for _ in range(4)])
+        corners = [(0, 0), (180, 12), (2400, 4), (2580, 10)]
+        sizes = [(tw, th)] * 4
     elif name == "stream":  # ragged sizes, seams cut at two thirds
         rng = np.random.default_rng(7)
         th, tw = 128, 256
@@ -127,10 +136,17 @@ def test_plan_strips_equals_jax(seed, kind):
              for cs, ce, ls, le, k in want[0]]
 
 
-@pytest.mark.parametrize("frontier", [False, True])
+@pytest.mark.parametrize("frontier,mask", [
+    pytest.param(False, True, id="False"),
+    pytest.param(True, True, id="True"),
+    # the engine's call: host bands (row bands without the frontier) and
+    # no weight mask
+    pytest.param(False, False, id="False-nomask"),
+    pytest.param(True, False, id="True-nomask")])
 @pytest.mark.parametrize("name", ["stream", "frontier"])
 @pytest.mark.parametrize("kind", ["multiband", "feather", "no"])
-def test_stream_composite_equals_blend_stack_and_jax(kind, name, frontier):
+def test_stream_composite_equals_blend_stack_and_jax(kind, name, frontier,
+                                                     mask):
     port, seams, ref, ref_seams = _stacks(name)
     th, tw = int(port.data.shape[1]), int(port.data.shape[2])
     pano_b, mask_b = compose.blend_stack(port, seams, kind, 5)
@@ -138,10 +154,14 @@ def test_stream_composite_equals_blend_stack_and_jax(kind, name, frontier):
                                      frontier_fetch=frontier, device="cpu")
     for i in range(len(port.sizes)):
         stream.feed(i, port.data[i], seams[i])
-    pano_s, mask_s = stream.finish()
-    assert isinstance(pano_s, np.ndarray) == frontier
+    if mask:
+        pano_s, mask_s = stream.finish()
+        assert isinstance(pano_s, np.ndarray) == frontier
+        np.testing.assert_array_equal(_host(mask_s), mask_b.numpy())
+    else:
+        pano_s, mask_s = stream.finish(stream_fetch=True, mask=False)
+        assert isinstance(pano_s, np.ndarray) and mask_s is None
     np.testing.assert_array_equal(_host(pano_s), pano_b.numpy())
-    np.testing.assert_array_equal(_host(mask_s), mask_b.numpy())
 
     ref_stream = jax_compose.StreamComposite(port.corners, port.sizes, kind,
                                              5, th, tw,
@@ -150,7 +170,8 @@ def test_stream_composite_equals_blend_stack_and_jax(kind, name, frontier):
         ref_stream.feed(i, ref.data[i], ref_seams[i])
     pano_r, mask_r = ref_stream.finish(stream_fetch=frontier)
     _within_1_lsb(pano_s, pano_r, kind)
-    np.testing.assert_array_equal(_host(mask_s), _host(mask_r))
+    if mask:
+        np.testing.assert_array_equal(_host(mask_s), _host(mask_r))
 
 
 def test_stream_composite_row_bands_equal_one_collapse():
@@ -174,6 +195,7 @@ def test_stream_composite_row_bands_equal_one_collapse():
     ("x", "multiband", True), ("y", "multiband", False),
     ("y", "multiband", True), ("y", "feather", True),
     ("mono", "multiband", True), ("mono", "feather", True),
+    ("gap", "multiband", True), ("gap", "no", True),
 ])
 def test_over_budget_blend_equals_jax_and_monolithic(monkeypatch, name, kind,
                                                       stream_fetch):
@@ -215,6 +237,24 @@ def test_over_budget_dispatch(monkeypatch):
     assert seen == [("strips", 0), ("strips", 1), ("mono", None)]
 
 
+def test_dropped_fetch_waits_on_its_last_copy():
+    """A `_HostFetch` dropped between `submit` and `assemble` (a stitch
+    that failed) waits on its last copy, so no copy still writes into a
+    host block that is handed out again; after `assemble` it waits on
+    nothing."""
+    waited = []
+    fetch = compose._HostFetch(torch.device("cpu"), 4, 6, 3)
+    fetch.done = types.SimpleNamespace(synchronize=lambda: waited.append(1))
+    del fetch
+    assert waited == [1]
+    fetch = compose._HostFetch(torch.device("cpu"), 4, 6, 3)
+    fetch.submit(1, 0, torch.ones((4, 6, 3), dtype=torch.uint8))
+    pano, wmask = fetch.assemble()
+    assert pano.sum() == 72 and wmask is None and fetch.done is None
+    del fetch
+    assert waited == [1]
+
+
 @pytest.mark.parametrize("nb,axis", [(2, 0), (3, 1), (8, 0), (8, 1)])
 @pytest.mark.parametrize("kind", ["multiband", "feather", "no"])
 def test_collapse_band_equals_full_collapse(nb, axis, kind):
@@ -253,3 +293,8 @@ def test_collapse_band_equals_full_collapse(nb, axis, kind):
         wwant = wmap[r0:r1] if axis == 0 else wmap[:, r0:r1]
         assert torch.equal(seg, want), (r0, r1)
         assert torch.equal(wseg, wwant), (r0, r1)
+        # a caller that drops the mask gets the same band and no mask
+        seg, wseg = compose._collapse_band(state, kind, nb, m, halo, pa,
+                                           other, r0, r1, axis=axis,
+                                           mask=False)
+        assert torch.equal(seg, want) and wseg is None, (r0, r1)

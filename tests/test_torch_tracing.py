@@ -105,6 +105,14 @@ def test_counters_of_the_stitch(traced):
     assert counters["crop/flood_rounds"] >= 1
 
 
+def test_no_band_lands_in_place_on_the_cpu(traced):
+    """The CPU writes its bands into the host panorama at once: the copy
+    engine lands none, and no copy is waited on."""
+    spans, counters, _ = traced
+    assert counters.get("fetch/bands_in_place", 0) == 0
+    assert "final/blend/wait" not in {s.name for s in spans}
+
+
 def test_every_stage_is_a_profiler_range(traced):
     spans, _, starts = traced
     made = Counter(s.name for s in spans)
